@@ -12,7 +12,7 @@
 //   * row_neighbours / cross_row_similarity — feature extraction
 //                        (lib/storage_formats/csr_util/csr_util_gen.c:597,640)
 //   * waksman_route    — exact Beneš routing (the BFLY format compiler's hot
-//                        path; no reference analog — TPU-specific)
+//                        path; no reference analog)
 //
 // Build: make -C native   (g++ -O3 -march=native -shared -fPIC)
 
@@ -368,8 +368,8 @@ int32_t euler_edge_color(const int64_t* left, const int64_t* right,
   // int32 internals keep the latency-bound random-access passes in half
   // the memory traffic; the guards force the numpy fallback outside range.
   // kmax bounds the counting-sort key space: 2^26 caps the transient cnt
-  // vector at 256 MB of int32 (2^28 risked a silent ~1 GB host alloc on
-  // memory-constrained workers before the numpy fallback could engage)
+  // vector at 256 MB of int32 (2^28 risked a silent ~1 GB host alloc
+  // before the numpy fallback could engage)
   if (kmax > (1LL << 26) || E > (1LL << 30)) return -1;
   const int32_t n = (int32_t)E;
   if (levels <= 0) {

@@ -1,8 +1,8 @@
-"""spmv_research_tpu — a TPU-native sparse linear-algebra framework.
+"""spmv_research_tpu — a JAX sparse linear-algebra framework (NVIDIA GPUs).
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of the
-SpMV-Research benchmarking suite (see SURVEY.md): sparse formats with
-conversion and feature extraction, Pallas TPU kernels for SpMV/SpMM/SDDMM
+A JAX/XLA implementation of the capabilities of the SpMV-Research
+benchmarking suite (see SURVEY.md): sparse formats with conversion and
+feature extraction, SpMV/SpMM/SDDMM through every format's XLA lowering
 (+SpGEMM, ILU0/IC0), iterative solvers, a seeded artificial-matrix generator,
 a protocol-faithful benchmark harness, and multi-chip/multi-host distribution
 over jax.sharding meshes.

@@ -84,8 +84,7 @@ def build_sellcs(csr: HostCSR, C: int = 8, sigma: int = 4096,
     """SELL-C-σ slab layout (see :class:`spmv_research_tpu.core.formats.SellCS`).
 
     σ-sorting (reference ``sell_sorted.cpp:184``) bounds padding waste; the slab
-    width of each slice is rounded to `width_align` so slab columns tile into
-    TPU lanes.
+    width of each slice is rounded to `width_align`.
     """
     perm = sigma_sort_rows(csr, sigma)
     p = csr_row_permute(csr, perm, permute_columns=False)
@@ -140,7 +139,7 @@ def round_up_vec(x: np.ndarray, mult: int) -> np.ndarray:
 def build_bsr(csr: HostCSR, br: int = 8, bc: int = 128, dtype=jnp.float32,
               block_align: int = 8) -> F.BSR:
     """Blocked rows: every (br × bc) tile containing ≥1 nonzero is stored dense.
-    MXU-native: SpMV becomes a stream of small dense matvecs with zero gather."""
+    SpMV becomes a stream of small dense matvecs with one block gather."""
     mb = (csr.m + br - 1) // br
     rows = np.repeat(np.arange(csr.m, dtype=np.int64), csr.row_lengths())
     brow = rows // br

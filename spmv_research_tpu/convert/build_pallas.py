@@ -1,7 +1,8 @@
-"""Best-available TPU-native format selection for benchmarking.
+"""Engine format selection for benchmarking.
 
 Role of the reference's kernel-selection map (``config.sh:458-661`` ``progs``):
-given a matrix, build the set of TPU-native formats worth benchmarking.
+given a matrix, build the set of routed-engine formats worth benchmarking
+beside CSR.
 """
 
 from __future__ import annotations
@@ -23,11 +24,11 @@ from .cache import cached_build_timed
 def build_best(host: HostCSR, dtype=jnp.float32) -> dict:
     """Return ``{name: (format, info)}`` candidates for this matrix, where
     ``info`` is the :func:`cached_build_timed` dict (per-format build time +
-    recorded cold conversion time — ADVICE r2 #2: timing ``build_best`` from
-    outside charged the first candidate with every build).
+    recorded cold conversion time — timing ``build_best`` from outside
+    would charge the first candidate with every build).
 
-    SELLR/SELLW are the column-locality engines (single fused kernel); their
-    builders raise on matrices without locality. CLOSG is the general
+    SELLR/SELLW are the column-locality engines; their builders raise on
+    matrices without locality. CLOSG is the general
     flagship (row-gather front end + Clos perm/compact); CLOS is the
     fallback when the column-block padding overflows the slot space; BFLY
     when even the exact-Clos slot space overflows its cap."""

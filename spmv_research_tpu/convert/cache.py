@@ -37,8 +37,9 @@ def matrix_digest(csr: HostCSR) -> str:
     return h.hexdigest()[:24]
 
 
-SCHEMA_VERSION = 18  # bump when any format pytree's field set changes
-                     # (14: SellW stage classes; 15: part_cap default 8)
+SCHEMA_VERSION = 19  # bump when any format pytree's field set changes
+                     # (14: SellW stage classes; 15: part_cap default 8;
+                     # 19: SellW drops stream_wins)
 
 
 def _key(csr: HostCSR, fmt_name: str, kwargs: dict) -> str:
@@ -77,7 +78,7 @@ def cached_build_timed(builder: Callable, csr: HostCSR, fmt_name: str,
     """Like :func:`cached_build` but also returns
     ``{"build_s": wall seconds this call, "cold_build_s": cold conversion
     time (recorded at first build; a cache hit must not report the load
-    time as the conversion cost — VERDICT r2 weak #6), "from_cache": bool}``.
+    time as the conversion cost), "from_cache": bool}``.
     """
     import time
     cache_dir = cache_dir or DEFAULT_CACHE_DIR

@@ -172,7 +172,7 @@ def make_spd(csr: HostCSR) -> HostCSR:
     (``run.sh`` cg group; ``bench_cg.cpp:93`` assumes SPD); SuiteSparse
     downloads are unavailable here, so the SPD *twin analog* plays that
     dataset's role — CG on a nonsymmetric twin is undefined and shipped
-    mape=1.0 rows in round 3 (VERDICT weak #1b)."""
+    mape=1.0 rows before the harness gated them."""
     import scipy.sparse as sp
     S = csr.to_scipy().tocsr()
     B = ((S + S.T) * 0.5).tocsr()

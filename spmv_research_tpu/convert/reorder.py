@@ -2,9 +2,9 @@
 
 RCM is the reference's bandwidth-reduction pass (``lib/rcm/rcm_gen.c:127``
 ``reverse_cuthill_mckee``, applied when ``USE_RCM_REORDERING=1`` —
-``bench.cpp:592-598``). On TPU, bandwidth reduction matters even more than on
-CPU: it gives the column locality that lets x-gathers hit VMEM-resident
-x-blocks. We use scipy's RCM when available (same BFS algorithm) with a numpy
+``bench.cpp:592-598``). Bandwidth reduction gives the column locality that
+lets x-gathers hit cached x-blocks, and that the locality engines (SELLW,
+SELLR) pack into dense slots. We use scipy's RCM when available (same BFS algorithm) with a numpy
 fallback, and add σ-sorting (windowed sort of rows by length) used by SELL-C-σ.
 """
 
@@ -99,7 +99,7 @@ def rcm_if_beneficial(csr: HostCSR) -> tuple[HostCSR, np.ndarray]:
     The reference gates RCM behind USE_RCM_REORDERING (bench.cpp:592) and
     leaves it off by default; generator matrices with low-bandwidth
     placement are *already* banded, and RCM on them scrambles the banding
-    (measured: mac_econ twin median row bw 405 → 1082, p90 → 135k), which
+    (mac_econ twin median row bw 405 → 1082, p90 → 135k), which
     starves the window-locality kernels (SELLW)."""
     bw0 = _mean_row_bandwidth(csr)
     reordered, perm = rcm_reorder(csr)

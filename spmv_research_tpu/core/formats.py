@@ -2,12 +2,12 @@
 
 Each format is a frozen dataclass registered as a pytree: array leaves live on
 device; sizes/padding metadata are static (hashable) so jitted kernels
-specialize on them.  This is the TPU-native analog of the reference's
+specialize on them.  This is the analog of the reference's
 ``Matrix_Format`` plugin structs (``benchmark_code/BENCH/src/spmv_kernels/
 spmv_kernel.h:8-28``): one class per storage format, each knowing its memory
 footprint, built from canonical host CSR by :mod:`spmv_research_tpu.convert.build`.
 
-Formats are padded to TPU-friendly tile multiples at build time (XLA requires
+Formats are padded to tile multiples at build time (XLA requires
 static shapes); the true ``nnz``/``m``/``n`` are kept as metadata and all
 padding lanes are arranged to contribute zero to results.
 """
@@ -133,14 +133,14 @@ class ELL:
                       "total_width"))
 @dataclasses.dataclass(frozen=True)
 class SellCS:
-    """SELL-C-σ in a TPU-friendly 2-D "slab" layout.
+    """SELL-C-σ in a 2-D "slab" layout.
 
     Rows are σ-sorted by length (windowed), grouped into slices of C rows, and
     each slice padded to its own max length L_s (reference ``sell.cpp`` /
     ``sell_sorted.cpp``). Instead of a ragged list of slices we store one dense
     slab of shape ``(C, total_width)`` where slice s occupies the column range
     ``[off_s, off_s + L_s)`` — every column of the slab is one "step" of C rows
-    processed in lockstep, which maps directly onto TPU sublanes.
+    processed in lockstep.
 
     ``slice_of_col[t]`` gives the slice owning slab column t;
     ``lane_rows[s*C + c] = perm_row`` gives the output row of lane c in slice s
@@ -180,7 +180,7 @@ class SellCS:
          meta_fields=("shape", "nnz", "nnz_expanded", "br", "bc", "n_blocks"))
 @dataclasses.dataclass(frozen=True)
 class BSR:
-    """Block-sparse rows: dense (br × bc) blocks on the MXU (role of the
+    """Block-sparse rows: dense (br × bc) blocks (role of the
     reference's MKL-BSR adapters, block sizes 2..64 — ``Makefile_in:363-374``).
 
     ``data``: (n_blocks_pad, br, bc); ``block_cols``: block-column index;

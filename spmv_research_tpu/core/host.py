@@ -8,7 +8,7 @@ all readers/generators produce :class:`HostCOO` or :class:`HostCSR`; all device
 formats are built *from* :class:`HostCSR`.
 
 Host-side preprocessing (parsing, sorting, conversion) is numpy/C++; only the
-final padded/tiled arrays are shipped to the TPU.
+final padded/tiled arrays are shipped to the device.
 """
 
 from __future__ import annotations

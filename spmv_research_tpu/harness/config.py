@@ -2,7 +2,7 @@
 
 Single-tier replacement for the reference's three-tier flag system
 (compile-time -D macros + env vars + config.sh assoc array — SURVEY.md §5.6).
-Every knob that is meaningful on TPU keeps its reference name; env-var
+Every knob that is meaningful here keeps its reference name; env-var
 overrides are honored for drop-in compatibility with reference run scripts.
 """
 
@@ -58,7 +58,7 @@ class BenchConfig:
 
     @staticmethod
     def from_env() -> "BenchConfig":
-        """Honor the reference's env-var names where meaningful on TPU."""
+        """Honor the reference's env-var names where meaningful here."""
         c = BenchConfig()
         rcm = os.environ.get("USE_RCM_REORDERING", "")
         c.use_rcm_reordering = ("auto" if rcm == "auto"

@@ -26,6 +26,13 @@ DBL_EPSILON = np.finfo(np.float64).eps
 
 EPSILON_GATE = {np.dtype(np.float32): 1e-7, np.dtype(np.float64): 1e-10}
 
+# Aggregate gate for fp32 kernels: mean absolute percentage error against the
+# extended-precision gold. The per-element 1e-7 gate above is attainable only
+# by fp64 kernels; the reference's own precision study
+# (``bench_spmv.cpp:66-83``) finds float kernels at mape ~1e-8 while the
+# strict gate warns, so fp32 results are held to mape <= 1e-6.
+FP32_MAPE_GATE = 1e-6
+
 
 @dataclasses.dataclass
 class ErrorMetrics:

@@ -111,33 +111,23 @@ def load_matrix(spec: str, cfg: BenchConfig):
     return host, name, params
 
 
-def _fatal_runtime(e: Exception) -> bool:
-    """A dead TPU worker poisons the whole process — every later dispatch
-    fails with UNAVAILABLE. The only recovery is a fresh process (the
-    run_resumable.sh wrapper restarts it; the done-log resumes)."""
-    return "UNAVAILABLE" in str(e) or "worker process crashed" in str(e)
-
-
 class SweepDoneLog:
-    """Idempotent per-pair records (SURVEY §5.4): keys of completed —
-    or repeatedly worker-crashing — (matrix, format, impl, workload)
-    pairs, so a restarted sweep process skips finished work."""
+    """Idempotent per-pair records (SURVEY §5.4): keys of completed
+    (matrix, format, impl, workload) pairs, so a restarted sweep process
+    skips finished work."""
 
     def __init__(self, out_dir):
         self.path = os.path.join(out_dir, "done.log")
         self.done = set()
-        self.crashes = {}
         if os.path.exists(self.path):
-            for ln in open(self.path):
-                tag, _, key = ln.strip().partition(" ")
-                if tag in ("DONE", "FAIL"):   # FAIL = gated garbage row:
-                    self.done.add(key)        # permanent, don't re-run
-                elif tag == "CRASH":
-                    self.crashes[key] = self.crashes.get(key, 0) + 1
+            with open(self.path) as f:
+                for ln in f:
+                    tag, _, key = ln.strip().partition(" ")
+                    if tag in ("DONE", "FAIL"):   # FAIL = gated garbage row:
+                        self.done.add(key)        # permanent, don't re-run
 
     def skip(self, *key) -> bool:
-        k = "/".join(map(str, key))
-        return k in self.done or self.crashes.get(k, 0) >= 2
+        return "/".join(map(str, key)) in self.done
 
     def mark(self, tag, *key):
         with open(self.path, "a") as f:
@@ -181,11 +171,6 @@ def run_sweep(matrices: Sequence[str], formats: Sequence[str] = ("csr", "bfly"),
                 print(f"# GATE-FAIL {name}/{workload}: {e}", flush=True)
                 continue
             except Exception as e:
-                if _fatal_runtime(e):
-                    donelog.mark("CRASH", name, workload)
-                    print(f"# FATAL worker death on {name}/{workload}; "
-                          "exiting for restart", flush=True)
-                    raise SystemExit(3)
                 print(f"# {workload} failed on {name}: "
                       f"{type(e).__name__}: {e}", flush=True)
                 continue
@@ -206,10 +191,6 @@ def run_sweep(matrices: Sequence[str], formats: Sequence[str] = ("csr", "bfly"),
             try:
                 A = builder(host, dtype=dtype)
             except Exception as e:   # a builder bug must not kill the sweep
-                if _fatal_runtime(e):
-                    print(f"# FATAL worker death building {fmt} on {name}; "
-                          "exiting for restart", flush=True)
-                    raise SystemExit(3)
                 print(f"# {fmt} build failed on {name}: "
                       f"{type(e).__name__}: {e}", flush=True)
                 continue
@@ -242,13 +223,6 @@ def run_sweep(matrices: Sequence[str], formats: Sequence[str] = ("csr", "bfly"),
                             r = None
                             break
                         except Exception as e:
-                            if _fatal_runtime(e):
-                                donelog.mark("CRASH", name, fmt, impl,
-                                             workload)
-                                print(f"# FATAL worker death on {name}/"
-                                      f"{fmt}/{impl}; exiting for restart",
-                                      flush=True)
-                                raise SystemExit(3)
                             print(f"# retry {fmt}/{impl}/{workload}: "
                                   f"{type(e).__name__}: {e}", flush=True)
                             if attempt == max_retries - 1:
@@ -272,7 +246,7 @@ def run_sweep(matrices: Sequence[str], formats: Sequence[str] = ("csr", "bfly"),
 
 def _gate_result(r, workload):
     """NaN metrics or a non-progressing solve must be a loud FAILURE, not a
-    committed CSV row (VERDICT r3 weak #1/#2)."""
+    committed CSV row."""
     mape = getattr(r, "mape", None)
     if mape is None and hasattr(r, "metrics"):
         mape = r.metrics.mape

@@ -7,12 +7,10 @@ matrix into packets of ``CSRCV_NUM_PACKET_VALS`` nonzeros and, per packet,
 + run lengths ("rf"), and (2) bit-packing the (row, col) coordinates at the
 packet's natural bit widths.
 
-On TPU the *runtime* byte-reduction role is carried by the routed engine
+Here the *runtime* byte-reduction role is carried by the routed engine
 (CLOSG packs its routing planes one int32/slot and folds λ / dict indices
 into spare bits; ≤128-distinct-value matrices drop the value plane entirely
-via ``build_clos_gather(value_lut=True)``) — an in-kernel bitstream decoder
-would feed a gather-based kernel, which is the serialized path on this
-hardware (DESIGN_NOTES.md). This module therefore provides DIV's packet
+via ``build_clos_gather(value_lut=True)``). This module therefore provides DIV's packet
 codec as the **storage/interchange codec**: exact CSR round-trip,
 per-packet value RLE + bit-packed delta coordinates, and the footprint
 accounting the reference reports as ``mem_footprint`` / ``mem_ratio``

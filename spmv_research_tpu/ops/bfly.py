@@ -4,11 +4,8 @@ The routed-butterfly SpMV (see :mod:`spmv_research_tpu.ops.routing`): the
 matrix is compiled into Beneš networks + scan masks at build time; runtime is
 pure rolls/selects/adds — no gather, no scatter anywhere.
 
-Two executors:
-* ``xla`` — jnp.roll/where on flat (N,) arrays; runs on every backend and
-  lets XLA:TPU code-generate the shifts.
-* ``pallas`` — hand-tiled (N/128, 128) kernel using pltpu.roll (lane rolls
-  for distances < 128, sublane rolls above), registered for TPU.
+One executor, ``xla``: jnp.roll/where on flat (N,) arrays, on every
+backend.
 """
 
 from __future__ import annotations

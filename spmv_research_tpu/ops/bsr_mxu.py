@@ -1,26 +1,29 @@
-"""BSRG — width-classed block-sparse slabs: the MXU path for blocked
-matrices (SpMV / SpMM / SDDMM without any scatter).
+"""BSRG — width-classed block-sparse slabs: the dense-matmul path for
+blocked matrices (SpMV / SpMM / SDDMM without any scatter).
 
 The plain BSR impls (``ops/reference.py``) reduce per-block products with
-``segment_sum`` — the scatter path measured at 0.11 G elem/s on this TPU
-(DESIGN_NOTES.md), unusable. BSRG removes the scatter the same way SELLG
-does for scalar rows, one level up:
+``segment_sum`` (a scatter-add). BSRG removes the scatter the same way
+SELLG does for scalar rows, one level up:
 
 * block rows are sorted by block count into power-of-two width classes;
 * a class is a dense (mc, w) slab of block-column ids + a (mc, w, br, bc)
   value slab (padding points at an appended zero X block);
 * SpMV/SpMM: ``Y_c = einsum("mwrc,mwck->mrk", data, Xblocks[idx])`` — a
-  batched MXU contraction per class; block-granular `take` is a
-  row-granular gather (HBM-bound, fast);
+  batched matrix contraction per class; block-granular `take` is a
+  row-granular gather;
 * output block rows are de-sorted with one final row gather.
 
 SDDMM on a block pattern needs no extraction at all: the output of
-``C_blk = A_blk @ B_blkᵀ`` *is* the BSR value layout — one batched MXU
+``C_blk = A_blk @ B_blkᵀ`` *is* the BSR value layout — one batched
 matmul over the stored blocks, masked by the stored-pattern mask.
+
+Every fp32 contraction here runs at ``Precision.HIGHEST``: the default on
+the GPU is TF32 (about three decimal digits), which would miss the fp32
+accuracy gate.
 
 Reference roles: MKL-BSR adapters (``Makefile_in:363-374``) on the compute
 side; ASpT/tiled SDDMM (``sddmm_kernels/aspt.cpp``) — dense-tile work on
-the matrix engine with the sparse remainder handled by the gather path
+the matrix units with the sparse remainder handled by the gather path
 (pair BSRG with ``sddmm(..., impl="gather")`` on the non-blocked rest).
 """
 
@@ -137,7 +140,8 @@ def spmm_bsrg(A: BsrG, X: jnp.ndarray) -> jnp.ndarray:
     for w in A.widths:
         ic, vc = A.idx[w], A.val[w]
         xg = xb.at[ic].get(mode="promise_in_bounds")   # (mc, w, bc, k)
-        outs.append(jnp.einsum("mwrc,mwck->mrk", vc.astype(X.dtype), xg))
+        outs.append(jnp.einsum("mwrc,mwck->mrk", vc.astype(X.dtype), xg,
+                               precision=jax.lax.Precision.HIGHEST))
     Yb = jnp.concatenate(outs, axis=0)                 # (mb, br, k)
     Yb = Yb.at[A.inv_perm].get(mode="promise_in_bounds")
     return Yb.reshape(-1, k)[: A.m]
@@ -148,10 +152,10 @@ def spmv_bsrg(A: BsrG, x: jnp.ndarray) -> jnp.ndarray:
     return spmm_bsrg(A, x[:, None])[:, 0]
 
 
-@register_sddmm("BSR", "mxu")
-def sddmm_bsr_mxu(S: BSR, A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
+@register_sddmm("BSR", "xla")
+def sddmm_bsr(S: BSR, A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """Block-dense SDDMM: C_blk = A_blk @ B_blkᵀ per stored block — pure
-    batched MXU matmuls, no per-entry extraction (the block IS the output
+    batched matmuls, no per-entry extraction (the block IS the output
     layout). Returns (n_blocks_pad·br·bc,) values aligned with ``S.data``,
     masked to the stored pattern (fill slots stay 0)."""
     br, bc, k = S.br, S.bc, A.shape[1]
@@ -163,6 +167,7 @@ def sddmm_bsr_mxu(S: BSR, A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     cols = jnp.minimum(S.block_cols, nb_x - 1)
     Ag = Ap.at[rows].get(mode="promise_in_bounds")     # (nb, br, k)
     Bg = Bp.at[cols].get(mode="promise_in_bounds")     # (nb, bc, k)
-    C = jnp.einsum("nrk,nck->nrc", Ag, Bg)             # (nb, br, bc)
+    C = jnp.einsum("nrk,nck->nrc", Ag, Bg,
+                   precision=jax.lax.Precision.HIGHEST)  # (nb, br, bc)
     mask = (S.data != 0) & (S.block_rows < mb)[:, None, None]
     return jnp.where(mask, C, 0.0).reshape(-1)

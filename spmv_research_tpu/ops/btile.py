@@ -1,34 +1,30 @@
-"""BTILE: dense-(8,128)-tile MXU engine for SpMM and SDDMM.
+"""BTILE: dense-(8,128)-tile matmul engine for SpMM and SDDMM.
 
 The reference treats the K dimension as a first-class sweep
 (``benchmark_code/BENCH/config.sh:138-143``, K=16-256) but its SpMM is a stub
 (``bench_spmm.cpp:268-280`` still calls spmv) and its SDDMM kernels are
-VPU-style dot loops (``sddmm_kernels/csr.cpp:109-135``).  On TPU the K
-dimension is *the* MXU opportunity: sparse A is packed into dense (8,128)
-tiles and every tile becomes one row-slab of a large matmul, so the A plane
-is streamed once per K-block instead of once per column (the round-1 CLOSG
-SpMM was a ``lax.scan`` of K SpMVs — K× the SpMV cost; VERDICT r2 item 5).
+element-wise dot loops (``sddmm_kernels/csr.cpp:109-135``).  The K
+dimension is a matrix-unit opportunity: sparse A is packed into dense
+(8,128) tiles and every tile becomes one row-slab of a large matmul, so the
+A plane is streamed once per K-block instead of once per column (a
+``lax.scan`` of K SpMVs costs K× the SpMV). A tensor-core kernel for this
+layout is a candidate for Hopper (ROADMAP), to be driven by a trace.
 
 Layout
 ------
 * tile (8,128) at (rowblock rb = row>>3, colblock cb = col>>7); only
   nonempty tiles are stored, as dense fp32 slabs.
-* row-band g = 1024 rows (128 rowblocks).  Y's (1024, K) band block stays
-  VMEM-resident across all steps of its band and is written to HBM once.
+* row-band g = 1024 rows (128 rowblocks).
 * step = up to TG tiles sharing one (g, cb); steps sorted g-major.
 
-SpMM kernel (one grid step)
----------------------------
-``P = tiles (TG*8,128) @ X[cb] (128,K)`` on the MXU, then placement into the
-band accumulator with a transposed one-hot matmul
-``Y[g] += S (1024, TG*8) @ P`` — also MXU, no serialized scatter (the
-round-2 SELLR spikes measured 64 chained dynamic RMWs at half the kernel
-time).  ``X[cb]`` is fetched via a scalar-prefetched index map, so
-consecutive steps on one column block reuse the VMEM copy.
+SpMM (``spmm_btile_xla``): ``P = tiles (TG*8,128) @ X[cb] (128,K)`` per
+step as one batched einsum, then a segment-sum of the (8, K) tile rows into
+their global row blocks.
 
-SDDMM kernel: ``C_tile = (S_onehot^T? -- see _btile_sddmm_kernel)``
-gathers the band's A rows with the same one-hot trick, multiplies against
-``B[cb]^T`` on the MXU and masks with the tile pattern.
+SDDMM (``sddmm_btile_xla``): gathers each step's TG*8 A rows, multiplies
+against ``B[cb]^T`` and masks with the tile pattern.
+
+Both contractions run at ``Precision.HIGHEST`` (fp32, not TF32).
 
 Applicability: tile fill ≥ ``1/max_slots_per_nnz`` (scattered matrices
 degenerate to 1 nnz/tile — they route to the gather engines instead).
@@ -43,8 +39,6 @@ from typing import Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..core.host import HostCSR
 from .dispatch import register_spmm, register_sddmm
@@ -68,7 +62,7 @@ class BTileBuildError(ValueError):
 class BTile:
     tiles: jnp.ndarray    # (nsteps*TG*8, 128) fp32 dense tile slabs
     patt: jnp.ndarray     # (nsteps*TG*8, 128) int8 structural pattern (1 at
-                          # stored nnz, incl. explicit zeros — ADVICE r2 #4)
+                          # stored nnz, incl. explicit zeros)
     tgt: jnp.ndarray      # (nsteps, TG*8) int32 local target row in band
     step_g: jnp.ndarray   # (nsteps,) int32 band of each step
     step_cb: jnp.ndarray  # (nsteps,) int32 column block of each step
@@ -140,7 +134,7 @@ def build_btile(csr: HostCSR, dtype=jnp.float32, tg: int = 32,
     tile_g = g[order][t_first]
 
     # dense tile slabs + structural pattern (explicit-zero values must not
-    # change tile liveness or the SDDMM mask — ADVICE r2 #4)
+    # change tile liveness or the SDDMM mask)
     tiles = np.zeros((ntiles, TILE_R, TILE_C), dt)
     tiles[tile_of_sorted, rows[order] & 7, ja[order] & 127] = \
         csr.a[order].astype(dt)
@@ -212,65 +206,6 @@ def _x_blocks(A: BTile, X: jnp.ndarray, dtype) -> jnp.ndarray:
                    ((0, A.ncb * TILE_C - n), (0, 0)))
 
 
-def _btile_spmm_kernel(tg, sg_ref, scb_ref, tgt_ref, tiles_ref, x_ref,
-                       y_ref):
-    i = pl.program_id(0)
-    prev_g = sg_ref[jnp.maximum(i - 1, 0)]
-    fresh = jnp.logical_or(i == 0, sg_ref[i] != prev_g)
-
-    @pl.when(fresh)
-    def _():
-        y_ref[:] = jnp.zeros_like(y_ref)
-
-    p = jnp.dot(tiles_ref[:], x_ref[:],
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)       # (TG*8, K)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (BAND, tg * TILE_R), 0)
-    # tgt is fully VMEM-resident ((1, TG*8) blocks violate the (8,128)
-    # tiling rule on real TPUs); slice this step's row in-kernel
-    s = (rows == tgt_ref[pl.ds(i, 1), :]).astype(jnp.float32)
-    y_ref[:] = y_ref[:] + jnp.dot(
-        s, p, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)
-
-
-def spmm_btile_pallas_padded(A: BTile, xp: jnp.ndarray) -> jnp.ndarray:
-    """xp (ncb*128, K) padded -> y (ngroups*1024, K) padded."""
-    k = xp.shape[1]
-    tg = A.tg
-    interpret = jax.default_backend() not in ("tpu",)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(A.nsteps,),
-        in_specs=[
-            pl.BlockSpec((A.nsteps, tg * TILE_R),
-                         lambda i, sg, scb: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tg * TILE_R, TILE_C), lambda i, sg, scb: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TILE_C, k), lambda i, sg, scb: (scb[i], 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((BAND, k), lambda i, sg, scb: (sg[i], 0),
-                               memory_space=pltpu.VMEM),
-    )
-    return pl.pallas_call(
-        partial(_btile_spmm_kernel, tg),
-        out_shape=jax.ShapeDtypeStruct((A.ngroups * BAND, k), jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(A.step_g, A.step_cb, A.tgt, A.tiles, xp)
-
-
-@register_spmm("BTILE", "pallas")
-def spmm_btile_pallas(A: BTile, X: jnp.ndarray) -> jnp.ndarray:
-    xp = _x_blocks(A, X, jnp.float32)
-    y = spmm_btile_pallas_padded(A, xp)
-    return y[: A.m]
-
-
 @register_spmm("BTILE", "xla")
 def spmm_btile_xla(A: BTile, X: jnp.ndarray) -> jnp.ndarray:
     """XLA lowering of the same tile program (correctness reference)."""
@@ -313,76 +248,6 @@ def execute_btile_numpy(A: BTile, X: np.ndarray) -> np.ndarray:
 
 # ---------------------------------------------------------------- SDDMM
 
-def _btile_sddmm_kernel(tg, sg_ref, scb_ref, tgt_ref, mask_ref, a_ref,
-                        b_ref, c_ref):
-    """C_tiles = (A_rows @ B[cb]^T) * mask, per step.
-
-    A band rows (1024, K) are VMEM-resident per band (index_map on sg);
-    the step's TG*8 A rows are gathered with the transposed one-hot matmul
-    (S^T (TG*8, 1024) @ A_band), then one (TG*8, K)@(K, 128) MXU matmul
-    against B's column block produces all TG tiles' dot products at once.
-    """
-    i = pl.program_id(0)
-    rows = jax.lax.broadcasted_iota(jnp.int32, (BAND, tg * TILE_R), 0)
-    s = (rows == tgt_ref[pl.ds(i, 1), :]).astype(jnp.float32)  # (1024,TG*8)
-    a_rows = jnp.dot(s.T, a_ref[:],
-                     preferred_element_type=jnp.float32,
-                     precision=jax.lax.Precision.HIGHEST)  # (TG*8, K)
-    prod = jnp.dot(a_rows, b_ref[:].T,
-                   preferred_element_type=jnp.float32,
-                   precision=jax.lax.Precision.HIGHEST)    # (TG*8, 128)
-    c_ref[:] = prod * mask_ref[:]
-
-
-def sddmm_btile_pallas_padded(A: BTile, ap: jnp.ndarray,
-                              bp: jnp.ndarray) -> jnp.ndarray:
-    """ap (ngroups*1024, K), bp (ncb*128, K) -> C tile values in the
-    (nsteps*TG*8, 128) slab layout (nonzero exactly at A's slots)."""
-    k = ap.shape[1]
-    tg = A.tg
-    interpret = jax.default_backend() not in ("tpu",)
-    mask = (A.patt != 0).astype(jnp.float32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(A.nsteps,),
-        in_specs=[
-            pl.BlockSpec((A.nsteps, tg * TILE_R),
-                         lambda i, sg, scb: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tg * TILE_R, TILE_C), lambda i, sg, scb: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((BAND, k), lambda i, sg, scb: (sg[i], 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((TILE_C, k), lambda i, sg, scb: (scb[i], 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tg * TILE_R, TILE_C),
-                               lambda i, sg, scb: (i, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    return pl.pallas_call(
-        partial(_btile_sddmm_kernel, tg),
-        out_shape=jax.ShapeDtypeStruct((A.nsteps * tg * TILE_R, TILE_C),
-                                       jnp.float32),
-        grid_spec=grid_spec,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(A.step_g, A.step_cb, A.tgt, mask, ap, bp)
-
-
-@register_sddmm("BTILE", "pallas")
-def sddmm_btile_pallas(A: BTile, Am: jnp.ndarray, Bm: jnp.ndarray
-                       ) -> jnp.ndarray:
-    """C slab values for pattern A from dense Am (m,K), Bm (n,K)."""
-    k = Am.shape[1]
-    ap = jnp.pad(Am.astype(jnp.float32),
-                 ((0, A.ngroups * BAND - Am.shape[0]), (0, 0)))
-    bp = jnp.pad(Bm.astype(jnp.float32),
-                 ((0, A.ncb * TILE_C - Bm.shape[0]), (0, 0)))
-    return sddmm_btile_pallas_padded(A, ap, bp)
-
-
 @register_sddmm("BTILE", "xla")
 def sddmm_btile_xla(A: BTile, Am: jnp.ndarray, Bm: jnp.ndarray
                     ) -> jnp.ndarray:
@@ -422,8 +287,7 @@ def sddmm_slab_to_csr_values(A: BTile, slab: jnp.ndarray,
     first[1:] = key_s[1:] != key_s[:-1]
     tile_of = np.cumsum(first) - 1
     # tile -> (step, slot): structural, from the build's recorded per-step
-    # tile ranges (value-inferred liveness broke on explicit zeros —
-    # ADVICE r2 #4)
+    # tile ranges (value-inferred liveness broke on explicit zeros)
     t0s = np.asarray(A.step_t0, np.int64)
     nts = np.asarray(A.step_nt, np.int64)
     tile_ids = (np.repeat(t0s, nts)

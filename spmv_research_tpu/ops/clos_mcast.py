@@ -450,32 +450,6 @@ def spmv_closm_xla(A: ClosM, x: jnp.ndarray) -> jnp.ndarray:
     return y
 
 
-# ------------------------------------------------------------------- Pallas
-
-@register_spmv("CLOSM", "pallas")
-def spmv_closm_pallas(A: ClosM, x: jnp.ndarray) -> jnp.ndarray:
-    from .clos_pallas import (_call, _invreg_kernel, _r3_scan_kernel,
-                              _r3_valid_kernel, _t_fwd, _t_bwd)
-    N, V = A.N, A.V
-    S = SUB * V
-    v = _spread(x, N, A.x_stride, A.vals.dtype)
-    v = _call(_invreg_kernel, v, A.g_r1)
-    v = _t_fwd(v, V)
-    v = _call(_invreg_kernel, v, A.g_r2)
-    v = _t_bwd(v, V)
-    v = _call(partial(_r3_scan_kernel, (S, A.scan_stages)), v,
-              A.g_r3, A.vals, A.scan_hi)
-    v = _call(_invreg_kernel, v, A.compact_r1)
-    v = _t_fwd(v, V)
-    v = _call(_invreg_kernel, v, A.compact_r2)
-    v = _t_bwd(v, V)
-    v = _call(_r3_valid_kernel, v, A.compact_r3)
-    y = v.reshape(-1)[: A.m]
-    if A.n_spill:
-        y = y + _spill_y(A, x, A.vals.dtype)
-    return y
-
-
 def execute_closm_numpy(A: ClosM, x: np.ndarray) -> np.ndarray:
     """float64-capable host reference of the compiled program."""
 

@@ -1,17 +1,16 @@
-"""Radix-1024 Clos routing for the TPU SpMV engine.
+"""Radix-1024 Clos routing for the routed SpMV engines.
 
 The BFLY engine (``routing.py``) executes arbitrary permutations as ~2·log2(N)
-binary butterfly stages — measured ~23 us/stage at N=2^20, so the three
-networks of one SpMV cost ~3 ms. This module replaces each Beneš network with
-a 3-level **Clos** factorization matched to the TPU vector unit's native
-shuffle radix (one vreg = 8 sublanes x 128 lanes = 1024 slots):
+binary butterfly stages. This module replaces each Beneš network with a
+3-level **Clos** factorization over blocks of 1024 slots (8 rows x 128
+lanes, called a "vreg" below):
 
     perm = R1 ∘ T ∘ R2 ∘ T ∘ R3
 
-where T is a (V,1024)-transpose (measured 1.6 us at N=2^20 in Mosaic) and each
-R* is an independent *per-vreg* permutation executed as 3 vreg-shuffle passes
-(lane-pick / sublane-pick / lane-pick, measured ~215 G elem/s batched). Total:
-9 shuffle passes + 2 transposes per network instead of ~39 roll stages.
+where T is a (V,1024)-transpose and each R* is an independent *per-block*
+permutation executed as 3 shuffle passes (lane-pick / row-pick /
+lane-pick). Total: 9 shuffle passes + 2 transposes per network instead of
+~39 roll stages.
 
 Routing theory (all standard):
   * Global level: elements are edges of a bipartite multigraph between source

@@ -2,12 +2,12 @@
 
 The reference's headline dtype is double with a 1e-10 relative-error gate
 against a ``_Float128`` Kahan gold (``benchmark_code/BENCH/src/
-bench_spmv.cpp:61-64,114-119``).  TPU VPU/MXU have no fp64 datapath, so the
-TPU-native equivalent represents every fp64 operand as an exact pair of
-fp32s (``hi + lo``, Dekker/Knuth double-single arithmetic, ~2^-48 unit
-roundoff) and runs the whole SpMV in paired-fp32:
+bench_spmv.cpp:61-64,114-119``). This path represents every fp64 operand
+as an exact pair of fp32s (``hi + lo``, Dekker/Knuth double-single
+arithmetic, ~2^-48 unit roundoff) and runs the whole SpMV in paired-fp32
+(the H200 also runs fp64 natively; which of the two wins is open):
 
-* TwoProd via Dekker splitting (no FMA primitive exposed by XLA-TPU);
+* TwoProd via Dekker splitting (no FMA primitive assumed);
 * TwoSum accumulation along padded row segments;
 * final ``hi + lo`` recombination in fp64 on host.
 
@@ -61,7 +61,7 @@ def _split32(a):
 
     Operand range: ``4097*a`` overflows fp32 for |a| ≥ ~8.3e34, silently
     turning TwoProd error terms into NaN — :func:`build_csrds` rejects
-    matrices whose |values| exceed ``DS_MAX_ABS`` at build time (ADVICE r3)."""
+    matrices whose |values| exceed ``DS_MAX_ABS`` at build time."""
     c = jnp.float32(4097.0) * a  # 2^12 + 1
     ahi = c - (c - a)
     return ahi, a - ahi

@@ -3,18 +3,20 @@
 The ultra-dense-row scattered class (human_gene1 ~5% density,
 TSOPF_RS_b2383 ~1.3%, rail4284) is structurally outside every gather
 engine here: group column windows exceed 64 octaves (CLOSG/CLOSGX
-reject), column locality is absent (SELLW rejects), and the XLA CSR
-gather baseline runs at 0.063 Gnnz/s. On TPU the right formulation for
-that class is to stop gathering: densify and ride a full-width matvec at
-HBM streaming bandwidth (the MXU/VPU plane the reference reserves for
-its tensor-core kernels — ``spmv_kernels/GPU_clean/dasp_cuda.cu`` role).
-At 5% density a dense fp32 matvec reads 20 bytes per nnz — a ~60×
-traffic increase over CSR — but streams at ~100× the gather rate, so it
-wins end-to-end for density ≳1%.
+reject) and column locality is absent (SELLW rejects). The alternative
+formulation for that class is to stop gathering: densify and ride a
+full-width matvec at streaming bandwidth (the dense plane the reference
+reserves for its tensor-core kernels —
+``spmv_kernels/GPU_clean/dasp_cuda.cu`` role). At 5% density a dense
+fp32 matvec reads 20 bytes per nnz, 20× what CSR reads per nnz; whether
+the stream beats the gather is a measurement on the card.
+
+The products run at ``Precision.HIGHEST`` (fp32, not the GPU's default
+TF32).
 
 The builder is budget-gated: it refuses matrices whose dense plane
 exceeds ``max_bytes`` (rail4284's 18.8 GB plane stays with the CSR
-baseline on a 16 GB part).
+baseline).
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ def _pad_x(A: DenseMV, x: jnp.ndarray) -> jnp.ndarray:
 @register_spmv("DENSE", "xla")
 def spmv_dense_xla(A: DenseMV, x: jnp.ndarray) -> jnp.ndarray:
     y = jnp.dot(A.mat, _pad_x(A, x),
-                preferred_element_type=jnp.float32)
+                preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST)
     return y[: A.m]
 
 
@@ -101,4 +104,5 @@ def spmm_dense_xla(A: DenseMV, X: jnp.ndarray) -> jnp.ndarray:
     npad = A.mat.shape[1]
     Xp = jnp.pad(X.astype(A.mat.dtype),
                  ((0, npad - X.shape[0]), (0, 0)))
-    return jnp.dot(A.mat, Xp, preferred_element_type=jnp.float32)[: A.m]
+    return jnp.dot(A.mat, Xp, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)[: A.m]

@@ -1,9 +1,8 @@
-"""Row-gather SpMM / SDDMM — the dense-k workloads on the TPU DMA path.
+"""Row-gather SpMM / SDDMM — the dense-k workloads as row gathers.
 
-Measured fact (DESIGN_NOTES): element gather on TPU is serialized
-(0.14 G elem/s) but *row-granular* gather is HBM-bound (~770 GB/s). For
-SpMM/SDDMM every nonzero consumes a k-wide dense row, so the whole gather
-problem is row-granular:
+For SpMM/SDDMM every nonzero consumes a k-wide dense row, so the whole
+gather problem is row-granular (contiguous k-wide rows instead of single
+elements):
 
 * **SpMM** (``SELLG`` format): rows are sorted by length into power-of-two
   width classes; within a class, padded (m_c, w_c) column-index and value

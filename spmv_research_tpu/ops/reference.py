@@ -1,10 +1,12 @@
 """XLA-native sparse ops — the portable baseline implementations.
 
-These run on every backend (CPU tests, TPU benchmarks) and serve the role the
+These run on every backend (CPU tests, GPU benchmarks) and serve the role the
 reference's "Naive_CSR_CPU" kernel plays (``spmv_kernels/csr.cpp:334-350``):
 the always-correct implementation every optimized kernel is validated against.
-They are also genuinely fast on TPU for many shapes, since XLA fuses the
-gather–multiply–segment-sum pipeline.
+CSR/xla is also the plain version every engine is timed against on the card.
+
+fp32 contractions run at ``Precision.HIGHEST``: the GPU's default for an
+fp32 matrix product is TF32, which keeps about three decimal digits.
 
 All ops are pure functions over the format pytrees of
 :mod:`spmv_research_tpu.core.formats` and are jit/vmap/grad-compatible.
@@ -84,7 +86,8 @@ def spmv_ell(A: F.ELL, x: jnp.ndarray) -> jnp.ndarray:
 def spmm_ell(A: F.ELL, X: jnp.ndarray) -> jnp.ndarray:
     # (m_pad, w, k) contraction over w
     gathered = jnp.take(X, A.cols, axis=0)  # (m_pad, w, k)
-    Y = jnp.einsum("mw,mwk->mk", A.data, gathered)
+    Y = jnp.einsum("mw,mwk->mk", A.data, gathered,
+                   precision=jax.lax.Precision.HIGHEST)
     return Y[: A.m]
 
 
@@ -105,13 +108,14 @@ def spmv_sellcs(A: F.SellCS, x: jnp.ndarray) -> jnp.ndarray:
 
 @register_spmv("BSR", "xla")
 def spmv_bsr(A: F.BSR, x: jnp.ndarray) -> jnp.ndarray:
-    """Per-block dense matvec on the MXU + block-row segment sum."""
+    """Per-block dense matvec + block-row segment sum."""
     n_pad = A.block_cols.shape[0]
     xpad = jnp.pad(x, (0, A.bc * ((A.n + A.bc - 1) // A.bc) - A.n))
     xblocks = xpad.reshape(-1, A.bc)
     xg = jnp.take(xblocks, A.block_cols, axis=0)  # (nb, bc)
     # (nb, br, bc) @ (nb, bc) -> (nb, br)
-    yb = jnp.einsum("nrc,nc->nr", A.data, xg)
+    yb = jnp.einsum("nrc,nc->nr", A.data, xg,
+                    precision=jax.lax.Precision.HIGHEST)
     mb = (A.m + A.br - 1) // A.br
     Y = jax.ops.segment_sum(
         yb, A.block_rows, num_segments=mb + 1, indices_are_sorted=True
@@ -125,7 +129,8 @@ def spmm_bsr(A: F.BSR, X: jnp.ndarray) -> jnp.ndarray:
     xpad = jnp.pad(X, ((0, A.bc * ((A.n + A.bc - 1) // A.bc) - A.n), (0, 0)))
     xblocks = xpad.reshape(-1, A.bc, k)
     xg = jnp.take(xblocks, A.block_cols, axis=0)  # (nb, bc, k)
-    yb = jnp.einsum("nrc,nck->nrk", A.data, xg)
+    yb = jnp.einsum("nrc,nck->nrk", A.data, xg,
+                    precision=jax.lax.Precision.HIGHEST)
     mb = (A.m + A.br - 1) // A.br
     Y = jax.ops.segment_sum(
         yb, A.block_rows, num_segments=mb + 1, indices_are_sorted=True

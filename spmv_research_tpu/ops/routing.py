@@ -1,11 +1,9 @@
 """Build-time routed butterfly networks — the flagship unstructured-SpMV engine.
 
-Why: on TPU there is no usable fine-grained gather or scatter (measured:
-XLA gather 0.14 G elem/s, segment_sum 0.11 G elem/s; Mosaic's dynamic_gather
-is limited to 8-deep/128-wide vreg shuffles — see DESIGN_NOTES.md). The only
-fast data-movement primitives are static shifts (``pltpu.roll``) and selects,
-which run at ~290 G stage-elem/s. So we compile each sparse matrix, at format-
-build time, into a *routing program*: sequences of butterfly exchange stages
+Why: the engine was designed for a machine without a usable fine-grained
+gather or scatter, where the fast data-movement primitives are static
+shifts (rolls) and selects (DESIGN_NOTES.md). So each sparse matrix is
+compiled, at format-build time, into a *routing program*: sequences of butterfly exchange stages
 (partner = position XOR 2^k) whose per-position take/keep decisions are
 precomputed bit-masks. One SpMV call then executes:
 
@@ -22,13 +20,13 @@ precomputed bit-masks. One SpMV call then executes:
        spread y positions; a validity bit-plane zeroes empty-row positions.
 
 Masks are packed as bit-planes of int32 words (bit k ↔ stage k), so the whole
-routing program costs ~16-24 bytes/nnz of streaming traffic and ~6 VPU ops
-per slot per active stage. Elements that lose a routing conflict spill to an
+routing program costs ~16-24 bytes/nnz of streaming traffic and ~6 vector
+ops per slot per active stage. Elements that lose a routing conflict spill to an
 additional additive pass (networks are linear operators, so passes sum).
 
 This plays the role of the reference's per-format SpMV kernels
 (``spmv_kernels/*.cpp``) — but where those encode per-ISA SIMD strategies,
-this encodes the data movement itself, because the TPU has no gather ISA.
+this encodes the data movement itself in place of a hardware gather.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Long-row splitting: the TPU answer to nnz-balanced row *sub*-division.
+"""Long-row splitting: nnz-balanced row *sub*-division at build time.
 
 The reference handles extreme row-length skew by splitting rows mid-row
 across threads with a per-thread tail fixup ("perfect nnz balance",
 ``benchmark_code/BENCH/src/spmv_kernels/csr.cpp:96-108,655-710``) and by
-work stealing (``DIV/div.cpp:991-1060``). On TPU the analog is a *build-time*
+work stealing (``DIV/div.cpp:991-1060``). Here the analog is a *build-time*
 transform: rows longer than a threshold are cut into sub-rows of ≤ T nnz,
 the engine runs on the split matrix (whose bounded row length keeps the
 CLOSG y-extraction in its fast windowed regime and the segmented scan at
@@ -14,12 +14,12 @@ rows keep their first ≤ T nnz in place); the extra sub-rows are appended at
 ``m..``, grouped contiguously per heavy row in row order and **padded with
 empty sub-rows to a multiple of 128 per heavy row** (plus one final all-
 empty 128-block as a gather target). Empty sub-rows contribute exact zeros,
-so the combine is a *row-granular* gather of whole 128-partial blocks — an
-HBM-speed DMA on TPU — followed by a tree reduction. No global prefix sum
+so the combine is a *row-granular* gather of whole 128-partial blocks,
+followed by a tree reduction. No global prefix sum
 is involved: partials of different rows never mix, so fp32 accumulation
-error stays O(eps·log) per row (a global fp32 cumsum over all extras loses
-~5 digits on dense-row matrices via cancellation — measured on the
-Chebyshev4 twin).
+error stays O(eps·log) per row (a global fp32 cumsum over all extras
+loses digits to cancellation on dense-row matrices such as the Chebyshev4
+twin).
 """
 
 from __future__ import annotations
@@ -163,11 +163,6 @@ def _spmv_rowsplit(A: RowSplit, x: jnp.ndarray, impl: str) -> jnp.ndarray:
     return _combine(A, dispatch.spmv(A.inner, x, impl=impl))
 
 
-@register_spmv("RSPLIT", "pallas")
-def spmv_rowsplit_pallas(A: RowSplit, x: jnp.ndarray) -> jnp.ndarray:
-    return _spmv_rowsplit(A, x, "pallas")
-
-
 @register_spmv("RSPLIT", "xla")
 def spmv_rowsplit_xla(A: RowSplit, x: jnp.ndarray) -> jnp.ndarray:
     return _spmv_rowsplit(A, x, "xla")
@@ -182,11 +177,6 @@ def _spmm_rowsplit(A: RowSplit, X: jnp.ndarray, impl: str) -> jnp.ndarray:
 
     _, ys = jax.lax.scan(body, 0, jnp.transpose(X))
     return jnp.transpose(ys)
-
-
-@dispatch.register_spmm("RSPLIT", "pallas")
-def spmm_rowsplit_pallas(A: RowSplit, X: jnp.ndarray) -> jnp.ndarray:
-    return _spmm_rowsplit(A, X, "pallas")
 
 
 @dispatch.register_spmm("RSPLIT", "xla")

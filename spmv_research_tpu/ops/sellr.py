@@ -1,16 +1,13 @@
-"""SELLR: group-pure sublane-bound SpMV — one fused kernel, y resident in VMEM.
+"""SELLR: group-pure sublane-bound SpMV program.
 
 Third-generation locality engine (successor to SELLW, ``sellw.py``): the
 reference role is still the SELL-C-σ / column-locality format family
 (``benchmark_code/BENCH/src/spmv_kernels/sell_sorted.cpp``,
-``spv8.cpp:243-299``), rebuilt around three measured facts of this TPU
-(tools/sellr_spike*.py):
+``spv8.cpp:243-299``), designed around three constraints:
 
-* the Pallas grid DMA streams 8 B/slot at 700–800 GB/s — speed of light —
-  when the kernel has no serialized scatter;
-* the per-chunk dynamic read-modify-write y-scatter of SELLW-style designs
-  costs half the kernel time;
-* slots/nnz (packing density) multiplies directly into Gnnz/s: SELLW's
+* a streamed program of 8 B/slot with no serialized scatter;
+* no per-chunk dynamic read-modify-write of y;
+* slots/nnz (packing density) multiplies directly into time: SELLW's
   G=2 block grouping wastes 2–4× in sublane slack.
 
 Layout
@@ -31,14 +28,12 @@ Per-slot word (int32):
   [22,25)  roll r   = (tsrow - sublane) mod 8   (tsrow = (row>>7) & 7)
   [25]     wrap     = sublane + r >= 8
 
-Kernel (one grid step = NB chunks)
-----------------------------------
-fill wins (per-sublane (1,128) x2d slices) → lane-pick gather → multiply →
-segmented lane scan → eidx pick → emask → masked sublane rolls place each
-part sum at (tsrow, row&127) of its chunk plane → sequential run-flush:
-chunks of one group accumulate into an (8,128) scratch, flushed into the
-VMEM-resident y plane (the kernel *output*, constant index_map) once per
-group.  y is written to HBM exactly once, at the end.
+Program (``sellr_xla_raw``)
+---------------------------
+row-gather wins (per-sublane (1,128) x2d rows) → lane-pick gather →
+multiply → segmented lane scan → eidx pick → emask → masked sublane rolls
+place each part sum at (tsrow, row&127) of its chunk plane → chunk planes
+summed into their group's (8,128) y rows.
 
 Applicability: column locality (banded / post-RCM / generated diagonal).
 The builder raises :class:`SellRBuildError` for scattered matrices
@@ -54,8 +49,6 @@ from typing import Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..core.host import HostCSR
 from .dispatch import register_spmv, register_spmm
@@ -64,9 +57,8 @@ from .clos_route import LANES, SUB
 
 GROUP = SUB * LANES          # 1024 rows per group
 NB = 64                      # chunks per grid step
-SMEM_BLK = 1024              # int32 SMEM tile (XLA layout T(1024))
+SMEM_BLK = 1024              # int32 per-step metadata block
 _MAX_STAGES = 7
-_XY_VMEM_ROWS = 1 << 14      # x2d/y2d rows each ≤ 16384 (8 MB fp32) resident
 
 
 class SellRBuildError(ValueError):
@@ -120,8 +112,7 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
     """Compile host CSR into a SELLR program.
 
     Raises :class:`SellRBuildError` when the matrix has no column locality
-    (estimated slots/nnz > ``max_slot_factor``) or exceeds the VMEM
-    residency limits for x/y.
+    (estimated slots/nnz > ``max_slot_factor``).
     """
     dt = np.dtype(dtype)
     m, n, nnz = csr.m, csr.n, csr.nnz
@@ -130,10 +121,6 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
     x_rows = max((n + LANES - 1) // LANES, 1)
     ngroups = (m + GROUP - 1) // GROUP
     y_rows = ngroups * SUB
-    if x_rows > _XY_VMEM_ROWS or y_rows > _XY_VMEM_ROWS:
-        raise SellRBuildError(
-            f"x_rows={x_rows} / y_rows={y_rows} exceed VMEM residency "
-            f"limit {_XY_VMEM_ROWS}")
     ia = csr.ia.astype(np.int64)
     ja = csr.ja.astype(np.int64)
 
@@ -212,7 +199,7 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
             s = -1
             # restrict first-fit to the newest 2 open sublanes: backtracking
             # into older tails mixes tsrows into one list, which blows up
-            # the per-step roll masks (measured 12/14 active vs 2-4)
+            # the per-step roll masks
             for q in range(max(0, len(open_pos) - 2), len(open_pos)):
                 if open_pos[q] + k <= LANES and not (
                         open_taken[q] >> tlane) & 1:
@@ -399,120 +386,22 @@ def _x_plane(A: SellR, x, dtype):
                        A.x_rows, LANES)
 
 
-def _sellr_kernel(stages, rolls, smeta_ref, word_ref, val_ref,
-                  x2d_ref, y_ref, v_ref, r_ref, acc_ref):
-    i = pl.program_id(0)
+def sellr_xla_raw(word, vals, smeta, x2d, *, stages, rolls, x_rows,
+                  y_rows):
+    """Raw-array SELLR program: x2d (x_rows, 128) -> y2d (y_rows, 128).
 
-    @pl.when(i == 0)
-    def _():
-        y_ref[:] = jnp.zeros_like(y_ref)
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    def fill(j, _):
-        wr = smeta_ref[j]
-        v_ref[pl.ds(j, 1), :] = x2d_ref[pl.ds(wr, 1), :]
-        return 0
-
-    jax.lax.fori_loop(0, NB * SUB, fill, 0, unroll=True)
-    w = word_ref[:]
-    v_ref[:] = jnp.take_along_axis(v_ref[:], w & 0x7F, axis=1) * val_ref[:]
-    smax = smeta_ref[NB * SUB + NB + 1]
-    for k in range(stages):
-        @pl.when(k < smax)
-        def _(k=k):
-            guard = ((w >> (7 + k)) & 1) != 0
-            v_ref[:] = v_ref[:] + jnp.where(
-                guard, pltpu.roll(v_ref[:], 1 << k, 1), 0.0)
-    v = v_ref[:]
-    E = jnp.take_along_axis(v, (w >> 14) & 0x7F, axis=1)
-    live = ((w >> 21) & 1) != 0
-    P = jnp.where(live, E, 0.0)
-    rcode = (w >> 22) & 0xF          # r | wrap<<3
-    r_ref[:] = jnp.where(live & (rcode == 0), P, 0.0)
-    rollmask = smeta_ref[NB * SUB + NB]
-    for j, (r, wrap) in enumerate(rolls):
-        @pl.when(((rollmask >> j) & 1) == 1)
-        def _(r=r, wrap=wrap):
-            mask = live & (rcode == (r | (wrap << 3)))
-            Q = jnp.where(mask, P, 0.0)
-            shift = r if not wrap else NB * SUB - (SUB - r)
-            r_ref[:] = r_ref[:] + pltpu.roll(Q, shift, 0)
-
-    def acc(c, _):
-        meta = smeta_ref[NB * SUB + c]
-        acc_ref[:] = acc_ref[:] + r_ref[pl.ds(c * SUB, SUB), :]
-
-        @pl.when((meta & 1) == 1)
-        def _():
-            yb = meta >> 1
-            y_ref[pl.ds(yb, SUB), :] = y_ref[pl.ds(yb, SUB), :] + acc_ref[:]
-            acc_ref[:] = jnp.zeros_like(acc_ref)
-
-        return 0
-
-    jax.lax.fori_loop(0, NB, acc, 0, unroll=True)
-
-
-def sellr_pallas_raw(word, vals, smeta, x2d, *, stages, rolls, x_rows,
-                     y_rows):
-    """Raw-array kernel invocation (used by the SPMD distributed layer,
-    where programs travel as stacked plain arrays through shard_map)."""
+    Takes the program as plain arrays so the SPMD distributed layer can
+    pass stacked per-shard programs through ``shard_map``."""
+    del x_rows                        # implied by x2d's shape
     nch = word.shape[0] // SUB
     nsteps = nch // NB
-    interpret = jax.default_backend() not in ("tpu",)
-    blk = lambda i: (i, 0)  # noqa: E731
-    vspec = pl.BlockSpec((NB * SUB, LANES), blk, memory_space=pltpu.VMEM)
-    sspec = pl.BlockSpec((SMEM_BLK,), lambda i: (i,),
-                         memory_space=pltpu.SMEM)
-    xspec = pl.BlockSpec((x_rows, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM)
-    yspec = pl.BlockSpec((y_rows, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        partial(_sellr_kernel, stages, rolls),
-        out_shape=jax.ShapeDtypeStruct((y_rows, LANES), vals.dtype),
-        grid=(nsteps,),
-        in_specs=[sspec, vspec, vspec, xspec],
-        out_specs=yspec,
-        scratch_shapes=[pltpu.VMEM((NB * SUB, LANES), vals.dtype),
-                        pltpu.VMEM((NB * SUB, LANES), vals.dtype),
-                        pltpu.VMEM((SUB, LANES), vals.dtype)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(smeta, word, vals, x2d)
-
-
-def spmv_sellr_pallas_2d(A: SellR, x2d: jnp.ndarray) -> jnp.ndarray:
-    """Padded-layout entry: x2d (x_rows, 128) -> y2d (y_rows, 128).
-
-    The natural kernel interface — callers that keep vectors in the padded
-    plane layout (CG iterations, the bench chain) skip the per-call
-    pad/slice copies of the (n,) wrapper."""
-    return sellr_pallas_raw(A.word, A.vals, A.smeta, x2d, stages=A.stages,
-                            rolls=A.rolls, x_rows=A.x_rows, y_rows=A.y_rows)
-
-
-@register_spmv("SELLR", "pallas")
-def spmv_sellr_pallas(A: SellR, x: jnp.ndarray) -> jnp.ndarray:
-    x2d = _x_plane(A, x, A.vals.dtype)
-    return spmv_sellr_pallas_2d(A, x2d).reshape(-1)[: A.m]
-
-
-@register_spmv("SELLR", "xla")
-def spmv_sellr_xla(A: SellR, x: jnp.ndarray) -> jnp.ndarray:
-    """XLA lowering of the same program (correctness reference on any
-    backend; the pallas kernel is the production path)."""
-    nch = A.word.shape[0] // SUB
-    x2d = _x_plane(A, x, A.vals.dtype)
-    nsteps = nch // NB
-    wrow = A.smeta.reshape(nsteps, SMEM_BLK)[:, : NB * SUB].reshape(-1)
-    cmeta = A.smeta.reshape(nsteps, SMEM_BLK)[:, NB * SUB: NB * SUB + NB]
-    cmeta = cmeta.reshape(-1)
-    w = A.word
+    meta = smeta.reshape(nsteps, SMEM_BLK)
+    wrow = meta[:, : NB * SUB].reshape(-1)
+    cmeta = meta[:, NB * SUB: NB * SUB + NB].reshape(-1)
+    w = word
     wins = x2d.at[wrow].get(mode="promise_in_bounds")
-    v = jnp.take_along_axis(wins, w & 0x7F, axis=1) * A.vals
-    for k in range(A.stages):
+    v = jnp.take_along_axis(wins, w & 0x7F, axis=1) * vals
+    for k in range(stages):
         guard = ((w >> (7 + k)) & 1) != 0
         v = v + jnp.where(guard, jnp.roll(v, 1 << k, axis=1), 0.0)
     E = jnp.take_along_axis(v, (w >> 14) & 0x7F, axis=1)
@@ -521,16 +410,22 @@ def spmv_sellr_xla(A: SellR, x: jnp.ndarray) -> jnp.ndarray:
     # place at (tsrow, lane) within each chunk: roll per (r, wrap)
     rcode = (w >> 22) & 0xF
     R = jnp.where(live & (rcode == 0), P, 0.0)
-    for (r, wrap) in A.rolls:
+    for (r, wrap) in rolls:
         mask = live & (rcode == (r | (wrap << 3)))
-        Q = jnp.where(mask, P, 0.0)
-        Q3 = Q.reshape(nch, SUB, LANES)
+        Q3 = jnp.where(mask, P, 0.0).reshape(nch, SUB, LANES)
         R = R + jnp.roll(Q3, r, axis=1).reshape(nch * SUB, LANES)
-    # scatter chunk planes to y groups
-    ybase = cmeta >> 1  # meaningless for dead chunks (all-zero planes)
+    # scatter chunk planes to y groups (dead chunks carry all-zero planes)
+    ybase = cmeta >> 1
     seg = jnp.repeat(ybase // SUB, SUB) * SUB + jnp.tile(
         jnp.arange(SUB), nch)
-    y2 = jax.ops.segment_sum(R, seg, num_segments=A.y_rows)
+    return jax.ops.segment_sum(R, seg, num_segments=y_rows)
+
+
+@register_spmv("SELLR", "xla")
+def spmv_sellr_xla(A: SellR, x: jnp.ndarray) -> jnp.ndarray:
+    y2 = sellr_xla_raw(A.word, A.vals, A.smeta, _x_plane(A, x, A.vals.dtype),
+                       stages=A.stages, rolls=A.rolls, x_rows=A.x_rows,
+                       y_rows=A.y_rows)
     return y2.reshape(-1)[: A.m]
 
 

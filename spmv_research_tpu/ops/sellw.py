@@ -1,6 +1,6 @@
-"""SELLW: sublane-bound SpMV — one fused Pallas kernel, gather = ONE lane-pick.
+"""SELLW: sublane-bound SpMV — the per-slot gather is ONE lane-pick.
 
-The TPU-native answer to the reference's SELL-C-σ / window-locality formats
+A routed answer to the reference's SELL-C-σ / window-locality formats
 (``benchmark_code/BENCH/src/spmv_kernels/sell_sorted.cpp``,
 ``spv8.cpp:243-299`` x-gather role) for matrices with column locality
 (banded, generated diagonal/low-bandwidth placement, FEM meshes).
@@ -29,16 +29,16 @@ blocks (``bid`` = log2(G) bits select which; G output planes, one per group
 member). For banded matrices adjacent blocks touch mostly the same x2d
 rows, so merging their bins amortizes the per-bin last-sublane slack — the
 dominant waste (bins of ~80 nnz against 128-slot sublanes) — over G·bin
-nnz: measured slots/nnz on the mac_econ twin 2.70 (G=1) → 2.06 (G=2) →
-1.46 (G=4) → 1.33 (G=8). The tax is G masked sums in extraction. Lane
+nnz: slots/nnz on the mac_econ twin 2.70 (G=1) → 2.06 (G=2) → 1.46 (G=4)
+→ 1.33 (G=8) (a host-side count, device-independent). The tax is G masked sums in extraction. Lane
 conflicts (rows of two grouped blocks with equal ``row mod 128`` ending in
 one sublane) are resolved at build by first-fit over the bin's open
 sublanes.
 
-Kernel (per grid step, all chunks batched)
-------------------------------------------
-1. sublane fill: ``wins[8j+s] = x2d[wrow[8j+s]]`` ((1,128) dynamic slices
-   from the VMEM-resident x plane — no HBM gather);
+Program (``spmv_sellw_xla``, all chunks batched)
+------------------------------------------------
+1. sublane fill: ``wins[8j+s] = x2d[wrow[8j+s]]`` (a row gather of (1,128)
+   x2d rows);
 2. gather: ``acc = take_along_axis(wins, lane, axis=1)`` — one op;
 3. multiply by the value plane; ``stages``-stage segmented lane scan
    (per-slot guard bits; parts never cross the 128-lane rows, and stages =
@@ -48,10 +48,9 @@ Kernel (per grid step, all chunks batched)
    by (sublane, row-within-block)), masked sum over the 8 sublanes → one
    (1,128) y-partial row per chunk.
 
-HBM traffic: one int32 word + one fp32 value per slot (8 B), plus x and the
-tiny per-chunk outputs — ~4× less than the CLOSG pipeline's ~14 B/slot over
-9 passes, with zero intermediate round-trips; and unlike CLOSG the whole
-pipeline is one kernel.
+Program bytes: one int32 word + one fp32 value per slot (8 B), plus x and
+the tiny per-chunk outputs — against the CLOSG pipeline's ~14 B/slot over
+9 passes.
 
 Word bit layout (int32, per slot (s, l) of a chunk):
   [0,7)    lane pick  b     = col mod 128
@@ -70,8 +69,6 @@ from typing import Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..core.host import HostCSR
 from .dispatch import register_spmv, register_spmm
@@ -80,7 +77,6 @@ from .clos_route import LANES, SUB
 
 CHUNK_PAD = 64          # chunks are padded to a multiple of this at build
 _MAX_STAGES = 7         # parts ≤ 128 lanes
-_X_VMEM_LIMIT = 1 << 20  # max n for the VMEM-resident x plane (4 MB fp32)
 
 
 class SellWBuildError(ValueError):
@@ -89,7 +85,7 @@ class SellWBuildError(ValueError):
 
 @partial(_register, data_fields=("word", "vals", "wrow", "yidx"),
          meta_fields=("shape", "nnz", "nnz_expanded", "nchunks", "x_rows",
-                      "K", "stages", "stream_wins", "G", "classes"))
+                      "K", "stages", "G", "classes"))
 @dataclasses.dataclass(frozen=True)
 class SellW:
     word: jnp.ndarray   # (8·nchunks_pad, 128) int32 packed per-slot word
@@ -103,17 +99,13 @@ class SellW:
     x_rows: int         # x2d rows (≥ 1)
     K: int              # max chunks per y block
     stages: int         # segmented-scan stages = ceil(log2(max part len))
-    stream_wins: bool = False  # n too big for VMEM x: XLA pre-gathers wins
-                               # and the kernel streams them (12 B/slot)
     G: int = 2          # y blocks grouped per chunk (bid bits = log2 G)
     # stage classes: chunks sorted by required scan depth at build; each
-    # class ((start_chunk, n_chunks, stages), ...) runs its own grid with
-    # only the scan stages its longest part needs. The round-3 ablation
-    # measured ~63 us/stage at 25M slots — the dominant per-slot op cost —
-    # while most chunks of short-row matrices need 2-3 of the global 5-7
-    # stages (VERDICT r3 next #1: "stage-class-sorted chunk batches").
-    # Extra stages are no-ops (guard bits 0), so classes are purely an
-    # op-count optimization; start/n are multiples of CHUNK_PAD.
+    # class ((start_chunk, n_chunks, stages), ...) needs only the scan
+    # stages its longest part needs — most chunks of short-row matrices
+    # need 2-3 of the global 5-7 stages. Extra stages are no-ops (guard
+    # bits 0), so classes are purely an op-count optimization; start/n are
+    # multiples of CHUNK_PAD.
     classes: Tuple[Tuple[int, int, int], ...] = ()
 
     format_name = "SELLW"
@@ -149,19 +141,16 @@ def build_sellw(csr: HostCSR, dtype=jnp.float32,
     ≤ 8; larger G amortizes last-sublane slack at the cost of G masked
     extraction sums). Raises :class:`SellWBuildError` when columns are so
     scattered that the slot count (≈ traffic blow-up) would exceed
-    ``max_chunk_factor`` × nnz. x too large for VMEM residency is NOT an
-    error: the program switches to the streamed-wins kernel
-    (``stream_wins``, 12 B/slot).
+    ``max_chunk_factor`` × nnz.
 
     ``part_cap`` (power of two ≤ 128) splits parts longer than the cap
     into sub-parts at build, each with its own extraction cell — the
     masked sublane-sum already adds sub-totals per (bid, lane), so the
     scan depth is bounded by ``log2(part_cap)`` with ZERO extra slots
-    (parts pack contiguously; splitting adds no padding). The round-4
-    ablation measured ~63 us/stage at 25M slots — scan depth is the
-    dominant per-slot cost — so capping 64-128-long parts (stages 6-7)
-    at 8 (stages 3) is the "fewer scan stages for short rows" lever of
-    VERDICT r3 next #1. Cost: sub-parts of one row need distinct
+    (parts pack contiguously; splitting adds no padding). Scan depth is a
+    per-slot cost, so capping 64-128-long parts (stages 6-7) at 8
+    (stages 3) is the "fewer scan stages for short rows" lever. Cost:
+    sub-parts of one row need distinct
     sublanes with a free cell at the row's lane (first-fit handles;
     extreme rows fragment bins across chunks).
     """
@@ -173,7 +162,6 @@ def build_sellw(csr: HostCSR, dtype=jnp.float32,
     if G not in (1, 2, 4, 8):
         raise SellWBuildError(f"group must be a power of two ≤ 8 ({G})")
     m, n, nnz = csr.m, csr.n, csr.nnz
-    stream_wins = n > _X_VMEM_LIMIT
     if m == 0 or nnz == 0:
         raise SellWBuildError("empty matrix")
     x_rows = max((n + LANES - 1) // LANES, 1)
@@ -223,7 +211,7 @@ def build_sellw(csr: HostCSR, dtype=jnp.float32,
                                                 for g in range(G))
                                           for b in bids_n],
                            max_part, m, n, nnz, csr.nnz_expanded, x_rows,
-                           nblocks, dt, stream_wins, G, idx_u=idx_n)
+                           nblocks, dt, G, idx_u=idx_n)
 
     wrow_l, word_l, vals_l, idx_l = [], [], [], []
     chunk_pair, chunk_bids = [], []
@@ -323,7 +311,7 @@ def build_sellw(csr: HostCSR, dtype=jnp.float32,
              else (np.zeros((0, LANES), np.int32) if want_idx else None))
     return _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids,
                        max_part, m, n, nnz, csr.nnz_expanded, x_rows,
-                       nblocks, dt, stream_wins, G, idx_u=idx_u)
+                       nblocks, dt, G, idx_u=idx_u)
 
 
 def _stage_classes(word_u, nchunks):
@@ -358,7 +346,7 @@ def _stage_classes(word_u, nchunks):
 
 def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
                 m, n, nnz, nnz_expanded, x_rows, nblocks, dt,
-                stream_wins, G, idx_u=None):
+                G, idx_u=None):
     """Sort chunks into stage classes, pad per class, build yidx, assemble
     the pytree (shared tail of the native and Python packer tiers).
 
@@ -435,7 +423,7 @@ def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
               nnz_expanded=nnz_expanded, nchunks=nchunks,
               x_rows=x_rows, K=K,
               stages=int(max_part - 1).bit_length(),
-              stream_wins=stream_wins, G=G,
+              G=G,
               classes=tuple(classes))
     if idxp is not None:
         return A, idxp
@@ -475,127 +463,6 @@ def spmv_sellw_xla(A: SellW, x: jnp.ndarray) -> jnp.ndarray:
     return _combine_y(A, planes)
 
 
-def _extract_planes(G, nB, w, E):
-    """G masked (nB,128) extraction planes from the end-pick E.
-
-    Direct per-g masks; a select/subtract split tree (2·(G−1)+2 passes
-    instead of 3·G) measured SLOWER at every G on v5e — the dependent
-    subtract chain schedules worse than independent fused masks."""
-    live = ((w >> 21) & 1) != 0
-    bid = (w >> 22) & (G - 1)
-    return [jnp.sum(jnp.where(live & (bid == g), E, 0.0)
-                    .reshape(nB, SUB, LANES), axis=1) for g in range(G)]
-
-
-def _sellw_kernel(nB, stages, G, base, wrow_ref, word_ref, val_ref,
-                  x2d_ref, *orefs_wins):
-    """One grid step: nB chunks, all stages batched over (8·nB, 128).
-    ``base`` = the stage class's first chunk (wrow is passed whole).
-
-    Fill: one flat unrolled stream of (1,128) dynamic row copies. Two
-    batching attempts measured SLOWER on v5e and were reverted (round-5
-    201a/201c labs): a span<8 block-read + in-vreg sublane gather
-    (take_along_axis(axis=0) lowers to a generic path) AND a per-chunk
-    pl.when uniform-broadcast — both landed ~22 vs 34 Gnnz/s on cant;
-    the branchy per-chunk loop itself defeats Mosaic's scheduling of
-    the copy stream."""
-    orefs, wins_ref = orefs_wins[:G], orefs_wins[G]
-    i = pl.program_id(0)
-
-    def fill(j, _):
-        wr = wrow_ref[(base + i * nB) * SUB + j]
-        wins_ref[pl.ds(j, 1), :] = x2d_ref[pl.ds(wr, 1), :]
-        return 0
-
-    jax.lax.fori_loop(0, nB * SUB, fill, 0, unroll=True)
-    w = word_ref[:]
-    v = jnp.take_along_axis(wins_ref[:], w & 0x7F, axis=1) * val_ref[:]
-    for k in range(stages):
-        guard = ((w >> (7 + k)) & 1) != 0
-        v = v + jnp.where(guard, pltpu.roll(v, 1 << k, 1), 0.0)
-    E = jnp.take_along_axis(v, (w >> 14) & 0x7F, axis=1)
-    for g, z in enumerate(_extract_planes(G, nB, w, E)):
-        orefs[g][:] = z
-
-
-def _sellw_stream_kernel(nB, stages, G, wins_ref, word_ref, val_ref,
-                         *orefs):
-    """Streamed-wins variant: wins pre-gathered by XLA (n too big for a
-    VMEM-resident x plane), streamed per grid block like word/vals."""
-    w = word_ref[:]
-    v = jnp.take_along_axis(wins_ref[:], w & 0x7F, axis=1) * val_ref[:]
-    for k in range(stages):
-        guard = ((w >> (7 + k)) & 1) != 0
-        v = v + jnp.where(guard, pltpu.roll(v, 1 << k, 1), 0.0)
-    E = jnp.take_along_axis(v, (w >> 14) & 0x7F, axis=1)
-    for g, z in enumerate(_extract_planes(G, nB, w, E)):
-        orefs[g][:] = z
-
-
-def _class_plan(A: SellW):
-    """((start_chunk, n_chunks, stages), ...) — stage classes when the
-    build recorded them, else one global-stages class (old cache entries)."""
-    nch = A.wrow.shape[0] // SUB
-    cls = [c for c in (A.classes or ()) if c[1] > 0]
-    if not cls:
-        cls = [(0, nch, A.stages)]
-    return cls, nch
-
-
-@register_spmv("SELLW", "pallas")
-def spmv_sellw_pallas(A: SellW, x: jnp.ndarray) -> jnp.ndarray:
-    classes, nch = _class_plan(A)
-    x2d = _x_plane(A, x, A.vals.dtype)
-    interpret = jax.default_backend() not in ("tpu",)
-    params = pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
-    wins = (x2d.at[A.wrow].get(mode="promise_in_bounds")
-            if A.stream_wins else None)
-    parts = []      # per-class G-tuples of (n_pad_c, LANES) planes
-    for start, cnt, stages in classes:
-        nB = min(CHUNK_PAD, cnt)
-        base_blk = start // nB
-        blk = lambda i, b=base_blk: (i + b, 0)  # noqa: E731
-        vspec = pl.BlockSpec((nB * SUB, LANES), blk,
-                             memory_space=pltpu.VMEM)
-        oblk = lambda i: (i, 0)  # noqa: E731
-        ospecs = tuple(pl.BlockSpec((nB, LANES), oblk,
-                                    memory_space=pltpu.VMEM)
-                       for _ in range(A.G))
-        oshape = tuple(jax.ShapeDtypeStruct((cnt, LANES), A.vals.dtype)
-                       for _ in range(A.G))
-        if A.stream_wins:
-            planes = pl.pallas_call(
-                partial(_sellw_stream_kernel, nB, stages, A.G),
-                out_shape=oshape, grid=(cnt // nB,),
-                in_specs=[vspec, vspec, vspec], out_specs=ospecs,
-                compiler_params=params, interpret=interpret,
-            )(wins, A.word, A.vals)
-        else:
-            planes = pl.pallas_call(
-                partial(_sellw_kernel, nB, stages, A.G, start),
-                out_shape=oshape, grid=(cnt // nB,),
-                in_specs=[
-                    pl.BlockSpec(memory_space=pltpu.SMEM), vspec, vspec,
-                    pl.BlockSpec((A.x_rows, LANES), lambda i: (0, 0),
-                                 memory_space=pltpu.VMEM),
-                ],
-                out_specs=ospecs,
-                scratch_shapes=[pltpu.VMEM((nB * SUB, LANES),
-                                           A.vals.dtype)],
-                compiler_params=params, interpret=interpret,
-            )(A.wrow, A.word, A.vals, x2d)
-        parts.append(planes)
-    if len(parts) == 1:
-        planes = parts[0]
-    else:
-        planes = [jnp.concatenate([p[g] for p in parts], axis=0)
-                  for g in range(A.G)]
-    if planes[0].shape[0] < nch:      # trailing all-pad region (empty build)
-        pad = nch - planes[0].shape[0]
-        planes = [jnp.pad(p, ((0, pad), (0, 0))) for p in planes]
-    return _combine_y(A, planes)
-
-
 def execute_sellw_numpy(A: SellW, x: np.ndarray) -> np.ndarray:
     """float64 host reference of the compiled program (program semantics)."""
     nch = int(A.wrow.shape[0]) // SUB
@@ -620,88 +487,6 @@ def execute_sellw_numpy(A: SellW, x: np.ndarray) -> np.ndarray:
 
 
 # ------------------------------------------------------------------- SpMM
-
-def _spmm_x_planes(A: SellW, X, dtype, kt):
-    """Pad X (n, K) to K' = 8·ceil(K/8) and return per-k x2d planes
-    (K', x_rows, 128)."""
-    n, K = X.shape
-    Kp = 8 * kt
-    Xp = jnp.zeros((A.x_rows * LANES, Kp), dtype)
-    Xp = Xp.at[:n, :K].set(X.astype(dtype))
-    return jnp.transpose(Xp.reshape(A.x_rows, LANES, Kp), (2, 0, 1))
-
-
-def _sellw_spmm_kernel(nB, stages, G, wrow_ref, word_ref, val_ref,
-                       *refs):
-    """One grid step, one k-tile of 8: per k, the SpMV pipeline re-runs on
-    the k-th x plane while word/vals stay VMEM-resident. Outputs are
-    k-major within the step's block: rows [kk·nB, (kk+1)·nB)."""
-    xrefs, orefs, wins_ref = refs[:8], refs[8:8 + G], refs[8 + G]
-    i = pl.program_id(0)
-    w = word_ref[:]
-    eidx = (w >> 14) & 0x7F
-    lane = w & 0x7F
-    for kk in range(8):
-        def fill(j, _, kk=kk):
-            wr = wrow_ref[i * nB * SUB + j]
-            wins_ref[pl.ds(j, 1), :] = xrefs[kk][pl.ds(wr, 1), :]
-            return 0
-
-        jax.lax.fori_loop(0, nB * SUB, fill, 0, unroll=True)
-        v = jnp.take_along_axis(wins_ref[:], lane, axis=1) * val_ref[:]
-        for k in range(stages):
-            guard = ((w >> (7 + k)) & 1) != 0
-            v = v + jnp.where(guard, pltpu.roll(v, 1 << k, 1), 0.0)
-        E = jnp.take_along_axis(v, eidx, axis=1)
-        for g, z in enumerate(_extract_planes(G, nB, w, E)):
-            orefs[g][pl.ds(kk * nB, nB), :] = z
-
-
-@register_spmm("SELLW", "pallas")
-def spmm_sellw_pallas(A: SellW, X: jnp.ndarray) -> jnp.ndarray:
-    """Y = A @ X: k-tiles of 8 over the fused SELLW pipeline (word/vals are
-    read once per tile; the reference's bench_spmm.cpp role with the K_DIM
-    sweep, config.sh:138-143)."""
-    n, K = X.shape
-    if A.stream_wins:
-        return spmm_sellw_xla(A, X)
-    nch = A.wrow.shape[0] // SUB
-    nB = min(CHUNK_PAD, nch)
-    kt = (K + 7) // 8
-    Xp = _spmm_x_planes(A, X, A.vals.dtype, kt)
-    interpret = jax.default_backend() not in ("tpu",)
-    blk = lambda i: (i, 0)  # noqa: E731
-    blk8 = lambda i: (i, 0)  # noqa: E731
-    vspec = pl.BlockSpec((nB * SUB, LANES), blk, memory_space=pltpu.VMEM)
-    xspec = pl.BlockSpec((A.x_rows, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM)
-    ospec = pl.BlockSpec((8 * nB, LANES), blk8, memory_space=pltpu.VMEM)
-    cols = []
-    for t in range(kt):
-        planes = pl.pallas_call(
-            partial(_sellw_spmm_kernel, nB, A.stages, A.G),
-            out_shape=tuple(
-                jax.ShapeDtypeStruct((8 * nch, LANES), A.vals.dtype)
-                for _ in range(A.G)),
-            grid=(nch // nB,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), vspec, vspec]
-            + [xspec] * 8,
-            out_specs=(ospec,) * A.G,
-            scratch_shapes=[pltpu.VMEM((nB * SUB, LANES), A.vals.dtype)],
-            compiler_params=pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024),
-            interpret=interpret,
-        )(A.wrow, A.word, A.vals,
-          *[Xp[8 * t + kk] for kk in range(8)])
-        # un-interleave the k-major step blocks -> (8, nch, 128)
-        planes = [jnp.transpose(o.reshape(nch // nB, 8, nB, LANES),
-                                (1, 0, 2, 3)).reshape(8, nch, LANES)
-                  for o in planes]
-        for kk in range(8):
-            if 8 * t + kk < K:
-                cols.append(_combine_y(A, [o[kk] for o in planes]))
-    return jnp.stack(cols, axis=1)
-
 
 @register_spmm("SELLW", "xla")
 def spmm_sellw_xla(A: SellW, X: jnp.ndarray) -> jnp.ndarray:

@@ -3,14 +3,13 @@ SELLW routing program.
 
 The reference's headline dtype is double at full memory bandwidth
 (``benchmark_code/BENCH/src/bench_spmv.cpp:61-64``, ``make.sh`` ``_d``
-targets). TPU has no fp64 datapath; CSRDS (ops/compensated.py) proves the
-1e-10 gate with XLA-gather double-single arithmetic but runs at
-0.012 Gnnz/s (VERDICT r3 weak #4). Here the SAME routing planes as SELLW
+targets). CSRDS (ops/compensated.py) proves the 1e-10 gate with
+XLA-gather double-single arithmetic. Here the SAME routing planes as SELLW
 (word bits, sublane binding, stage classes, part capping — the coordinate
 program does not care about the value dtype) carry an (hi, lo) fp32 pair
-value plane, and the in-kernel pipeline becomes:
+value plane, and the pipeline becomes:
 
-* gather: two lane-picks (x hi/lo planes, both VMEM-resident);
+* gather: two lane-picks (x hi/lo planes);
 * product: Dekker TwoProd(vhi, xhi) + first-order cross terms;
 * scan: guarded segmented **TwoSum** scan (the error plane rides along);
 * extraction + per-block combine: sequential TwoSum folds (sublanes, then
@@ -33,16 +32,13 @@ from typing import Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..core.host import HostCSR
 from .dispatch import register_spmv
 from .clos import _register
 from .clos_route import LANES, SUB
 from .compensated import DS_MAX_ABS, _split_f64, _two_sum
-from .sellw import (SellW, SellWBuildError, build_sellw, _class_plan,
-                    CHUNK_PAD, _X_VMEM_LIMIT)
+from .sellw import SellW, SellWBuildError, build_sellw
 
 
 @partial(_register, data_fields=("base", "vlo"), meta_fields=())
@@ -89,10 +85,6 @@ def build_sellwds(csr: HostCSR, dtype=jnp.float32, group: int = 2,
     if amax >= DS_MAX_ABS:
         raise SellWBuildError(
             f"max|a| = {amax:.3g} overflows the fp32 Dekker split")
-    if csr.n > _X_VMEM_LIMIT:
-        raise SellWBuildError(
-            "n too large for the VMEM-resident hi/lo x planes "
-            "(stream_wins DS path not built; CSRDS covers this tier)")
     base, idxp = build_sellw(csr, dtype=jnp.float32, group=group,
                              part_cap=part_cap,
                              max_chunk_factor=max_chunk_factor,
@@ -114,115 +106,12 @@ def _split32(a):
     return ahi, a - ahi
 
 
-def _ds_pipeline(w, vhi, vlo, gxh, gxl, stages, G, nB):
-    """Shared math: product + TwoSum scan + compensated extraction.
-    Returns [(S_g, E_g)] per group member, each (nB, LANES)."""
-    p = vhi * gxh
-    ahi, alo = _split32(vhi)
-    bhi, blo = _split32(gxh)
-    e = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo
-    e = e + vhi * gxl + vlo * gxh
-    s_, e_ = p, e
-    for k in range(stages):
-        g = ((w >> (7 + k)) & 1) != 0
-        rs = pltpu.roll(s_, 1 << k, 1)
-        re = pltpu.roll(e_, 1 << k, 1)
-        rsg = jnp.where(g, rs, 0.0)
-        t = s_ + rsg
-        bb = t - s_
-        err = (s_ - (t - bb)) + (rsg - bb)
-        e_ = e_ + jnp.where(g, re, 0.0) + err
-        s_ = t
-    eidx = (w >> 14) & 0x7F
-    Es = jnp.take_along_axis(s_, eidx, axis=1).reshape(nB, SUB, LANES)
-    Ee = jnp.take_along_axis(e_, eidx, axis=1).reshape(nB, SUB, LANES)
-    live = (((w >> 21) & 1) != 0).reshape(nB, SUB, LANES)
-    bid = ((w >> 22) & (G - 1)).reshape(nB, SUB, LANES)
-    out = []
-    for gg in range(G):
-        mask = live & (bid == gg)
-        S = jnp.zeros((nB, LANES), s_.dtype)
-        E = jnp.zeros((nB, LANES), s_.dtype)
-        for si in range(SUB):      # sequential TwoSum fold over sublanes
-            v = jnp.where(mask[:, si], Es[:, si], 0.0)
-            S, e1 = _two_sum(S, v)
-            E = E + e1 + jnp.where(mask[:, si], Ee[:, si], 0.0)
-        out.append((S, E))
-    return out
-
-
-def _sellwds_kernel(nB, stages, G, base, wrow_ref, word_ref, vhi_ref,
-                    vlo_ref, xh_ref, xl_ref, *rest):
-    orefs, winh_ref, winl_ref = rest[: 2 * G], rest[2 * G], rest[2 * G + 1]
-    i = pl.program_id(0)
-
-    def fill(j, _):
-        wr = wrow_ref[(base + i * nB) * SUB + j]
-        winh_ref[pl.ds(j, 1), :] = xh_ref[pl.ds(wr, 1), :]
-        winl_ref[pl.ds(j, 1), :] = xl_ref[pl.ds(wr, 1), :]
-        return 0
-
-    jax.lax.fori_loop(0, nB * SUB, fill, 0, unroll=True)
-    w = word_ref[:]
-    lanepick = w & 0x7F
-    gxh = jnp.take_along_axis(winh_ref[:], lanepick, axis=1)
-    gxl = jnp.take_along_axis(winl_ref[:], lanepick, axis=1)
-    outs = _ds_pipeline(w, vhi_ref[:], vlo_ref[:], gxh, gxl, stages, G, nB)
-    for gg, (S, E) in enumerate(outs):
-        orefs[2 * gg][:] = S
-        orefs[2 * gg + 1][:] = E
-
-
 def _x_planes(A: SellWDS, xhi, xlo):
     B = A.base
     pad = B.x_rows * LANES - xhi.shape[0]
     xh = jnp.pad(xhi, (0, pad)).reshape(B.x_rows, LANES)
     xl = jnp.pad(xlo, (0, pad)).reshape(B.x_rows, LANES)
     return xh, xl
-
-
-def spmv_sellwds_pair(A: SellWDS, xhi: jnp.ndarray, xlo: jnp.ndarray):
-    """Pair-in, pair-out SpMV: (xhi, xlo) fp32 planes -> (s, e) planes."""
-    B = A.base
-    classes, nch = _class_plan(B)
-    xh, xl = _x_planes(A, xhi, xlo)
-    interpret = jax.default_backend() not in ("tpu",)
-    params = pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
-    parts = []
-    for start, cnt, stages in classes:
-        nB = min(CHUNK_PAD, cnt)
-        blk = lambda i, b=start // nB: (i + b, 0)  # noqa: E731
-        vspec = pl.BlockSpec((nB * SUB, LANES), blk, memory_space=pltpu.VMEM)
-        oblk = lambda i: (i, 0)  # noqa: E731
-        ospecs = tuple(pl.BlockSpec((nB, LANES), oblk,
-                                    memory_space=pltpu.VMEM)
-                       for _ in range(2 * B.G))
-        oshape = tuple(jax.ShapeDtypeStruct((cnt, LANES), jnp.float32)
-                       for _ in range(2 * B.G))
-        xspec = pl.BlockSpec((B.x_rows, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-        planes = pl.pallas_call(
-            partial(_sellwds_kernel, nB, stages, B.G, start),
-            out_shape=oshape, grid=(cnt // nB,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), vspec, vspec,
-                      vspec, xspec, xspec],
-            out_specs=ospecs,
-            scratch_shapes=[pltpu.VMEM((nB * SUB, LANES), jnp.float32),
-                            pltpu.VMEM((nB * SUB, LANES), jnp.float32)],
-            compiler_params=params, interpret=interpret,
-        )(B.wrow, B.word, B.vals, A.vlo, xh, xl)
-        parts.append(planes)
-    if len(parts) == 1:
-        flat = parts[0]
-    else:
-        flat = [jnp.concatenate([p[i] for p in parts], axis=0)
-                for i in range(2 * B.G)]
-    npad_have = flat[0].shape[0]
-    if npad_have < nch:
-        flat = [jnp.pad(p, ((0, nch - npad_have), (0, 0))) for p in flat]
-    s_planes = [flat[2 * g] for g in range(B.G)]
-    e_planes = [flat[2 * g + 1] for g in range(B.G)]
-    return _combine_y_ds(B, s_planes, e_planes)
 
 
 def _combine_y_ds(B: SellW, s_planes, e_planes):
@@ -242,7 +131,7 @@ def _combine_y_ds(B: SellW, s_planes, e_planes):
 
 
 def spmv_sellwds_xla_pair(A: SellWDS, xhi, xlo):
-    """Full-array (XLA) version of the kernel math — CPU test path."""
+    """Pair-in, pair-out SpMV: (xhi, xlo) fp32 planes -> (s, e) planes."""
     B = A.base
     nch = B.wrow.shape[0] // SUB
     xh, xl = _x_planes(A, xhi, xlo)
@@ -253,7 +142,6 @@ def spmv_sellwds_xla_pair(A: SellWDS, xhi, xlo):
     gxh = jnp.take_along_axis(winh, lanepick, axis=1)
     gxl = jnp.take_along_axis(winl, lanepick, axis=1)
 
-    # same math as _ds_pipeline but with jnp.roll (no pltpu outside pallas)
     p = B.vals * gxh
     ahi, alo = _split32(B.vals)
     bhi, blo = _split32(gxh)
@@ -289,21 +177,12 @@ def spmv_sellwds_xla_pair(A: SellWDS, xhi, xlo):
     return _combine_y_ds(B, s_planes, e_planes)
 
 
-def spmv_sellwds_f64(A: SellWDS, x: np.ndarray,
-                     impl: str = "pallas") -> np.ndarray:
+def spmv_sellwds_f64(A: SellWDS, x: np.ndarray) -> np.ndarray:
     """Host fp64 -> device DS pair -> host fp64 (~2^-48 relative)."""
     xhi, xlo = _split_f64(np.asarray(x, np.float64))
-    fn = spmv_sellwds_pair if impl == "pallas" else spmv_sellwds_xla_pair
-    s, e = jax.jit(fn)(A, jnp.asarray(xhi), jnp.asarray(xlo))
+    s, e = jax.jit(spmv_sellwds_xla_pair)(A, jnp.asarray(xhi),
+                                          jnp.asarray(xlo))
     return np.asarray(s, np.float64) + np.asarray(e, np.float64)
-
-
-@register_spmv("SELLWDS", "pallas")
-def spmv_sellwds_pallas(A: SellWDS, x: jnp.ndarray) -> jnp.ndarray:
-    """fp32-x convenience entry (harness drives it like any format; the
-    VALUE planes still carry fp64 precision)."""
-    s, e = spmv_sellwds_pair(A, x.astype(jnp.float32), jnp.zeros_like(x))
-    return s + e
 
 
 @register_spmv("SELLWDS", "xla")

@@ -75,7 +75,7 @@ def build_sharded_closg(csr: HostCSR, devices: Sequence = None,
 
 
 def distributed_spmv_closg(A: ShardedClosG, x: jnp.ndarray,
-                           impl: str = "pallas") -> jnp.ndarray:
+                           impl: str = "xla") -> jnp.ndarray:
     """Broadcast x (allgather halo strategy), run the k per-device routed
     SpMVs concurrently (async dispatch), concatenate row blocks."""
     ys = []

@@ -11,14 +11,14 @@ max over shards, and one ``shard_map`` program executes everywhere.
 
 Strategy: rows are nnz-balanced across devices (128-aligned boundaries,
 ``partition_rows_nnz_balanced``); x is *sharded* on the device axis and
-``all_gather``\\ed over ICI inside the step — the right exchange for
+``all_gather``\\ed over the interconnect inside the step — the right exchange for
 scattered matrices, whose column support spans the whole vector (the
 reference's dense shared-memory x, SURVEY §2.8; ring column-blocks only
 pay off with column locality, which is SELLR's domain —
 ``dist_sellr.py``).
 
 Weak-scaling model (DESIGN_NOTES "Distributed scattered" section): per
-step t ≈ max_d t_chip(nnz_d) + t_ag(n·4B over ICI) with t_chip ≈
+step t ≈ max_d t_chip(nnz_d) + t_ag(n·4B over the links) with t_chip ≈
 slots_d / rate_CLOSG; the builder records per-shard slots/nnz
 (``DistClosGX.shard_slots`` / ``shard_nnz``) so the model runs on real
 build outputs.
@@ -36,7 +36,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ..core.host import HostCSR
-from ..ops.clos_xl import ClosGX, build_clos_gather_xl, spmv_closgx_pallas
+from ..ops.clos_xl import ClosGX, build_clos_gather_xl, spmv_closgx_xla
 from ..ops.clos_route import LANES
 from .dist import partition_rows_nnz_balanced
 
@@ -58,10 +58,10 @@ class DistClosGX:
     n_pad: int                 # x length padded to k*LANES multiple
     shard_nnz: Tuple[int, ...]
     shard_slots: Tuple[int, ...]  # live chunk slots per shard (C_live*N)
-    # allgather-overlap variant (VERDICT r3 next #8): entries whose columns
+    # allgather-overlap variant: entries whose columns
     # fall in the device's OWN x shard are split out at build into a second
     # program family that runs on xloc BEFORE the all_gather result is
-    # needed — XLA's latency-hiding scheduler overlaps the ICI gather with
+    # needed — XLA's latency-hiding scheduler overlaps the gather with
     # the local-column compute (no data dependence). None = un-overlapped.
     leaves_loc: dict = None       # local-column family (k, ...) arrays
     statics_loc: dict = None
@@ -167,7 +167,7 @@ def build_dist_closgx(csr: HostCSR, mesh: Mesh, axis: str = "d",
         raise ValueError(
             f"matrix too small for {k}-way 128-aligned sharding "
             f"(m={m} < {k * LANES}); use fewer devices or the single-chip "
-            "path (ADVICE r3: collapsed zero-row shards fail obscurely)")
+            "path (collapsed zero-row shards fail obscurely)")
     # 128-aligned nnz-balanced row boundaries
     starts = partition_rows_nnz_balanced(csr, k)
     starts = [min((s + LANES - 1) // LANES * LANES, m) for s in starts]
@@ -244,13 +244,13 @@ def dist_spmv_closgx(D: DistClosGX, x_shards: jnp.ndarray) -> jnp.ndarray:
             rem = leaves[: len(_LEAF_FIELDS)]
             loc = leaves[len(_LEAF_FIELDS):]
             # issue the gather FIRST, then the local-column program on
-            # xloc — independent of the gather, so the ICI transfer rides
+            # xloc — independent of the gather, so the transfer rides
             # under the compute (XLA latency-hiding scheduler)
             xfull = jax.lax.all_gather(xloc, ax, tiled=True)
             Al = _local_program(D, [lv[0] for lv in loc], D.statics_loc)
-            y_loc = spmv_closgx_pallas(Al, xloc.reshape(-1))
+            y_loc = spmv_closgx_xla(Al, xloc.reshape(-1))
             Ar = _local_program(D, [lv[0] for lv in rem])
-            y_rem = spmv_closgx_pallas(Ar, xfull.reshape(-1)[: D.n])
+            y_rem = spmv_closgx_xla(Ar, xfull.reshape(-1)[: D.n])
             return (y_loc + y_rem)[None]
 
         return f2(x_shards, *leaf_list, *leaf_list_l)
@@ -261,7 +261,7 @@ def dist_spmv_closgx(D: DistClosGX, x_shards: jnp.ndarray) -> jnp.ndarray:
         xfull = jax.lax.all_gather(xloc, ax, tiled=True)
         xfull = xfull.reshape(-1)[: D.n]
         A = _local_program(D, [lv[0] for lv in leaves])
-        y = spmv_closgx_pallas(A, xfull)
+        y = spmv_closgx_xla(A, xfull)
         return y[None]
 
     return f(x_shards, *leaf_list)

@@ -6,7 +6,7 @@ one canonical shape (dead chunks are inert by construction — zero emask,
 flush 0), so a single ``shard_map`` program executes on every device and
 the whole step jits multi-host (SURVEY.md §2.8/§5.8; the reference has no
 distributed backend — ``slurm*.sh`` launches independent jobs — so this
-layer is the new design surface the TPU charter calls for).
+layer is new design surface).
 
 Strategies (the reference-role halo-exchange triple, SURVEY §5.7/§5.8):
 
@@ -16,8 +16,7 @@ Strategies (the reference-role halo-exchange triple, SURVEY §5.7/§5.8):
   it multiplies its (row-shard × column-block (d+j) mod k) program against
   the x shard it currently holds, then ``ppermute``\\s the shard along the
   ring.  Per-step work is only that block's nnz — build-time column
-  partitioning, not the O(k·nnz) masked re-reads of the round-1 CSR ring
-  (VERDICT round 1, item 3).
+  partitioning, not the O(k·nnz) masked re-reads of a masked CSR ring.
 * ``psum_scatter``: column-sharded A, full-height partial y per device,
   ``psum_scatter`` over row blocks.
 """
@@ -36,7 +35,7 @@ from functools import partial
 
 from ..core.host import HostCSR
 from ..ops.sellr import (GROUP, NB, SMEM_BLK, SellR, SellRBuildError,
-                         build_sellr, sellr_pallas_raw)
+                         build_sellr, sellr_xla_raw)
 from ..ops.clos_route import LANES, SUB
 from .dist import partition_rows_nnz_balanced
 
@@ -235,7 +234,7 @@ def dist_spmv_sellr(D: DistSellR, x: jnp.ndarray) -> jnp.ndarray:
     :func:`_pad_x` (callers may jit this whole function)."""
     mesh, k, meta = D.mesh, D.k, D.meta
     x_rows, y_rows = meta["x_rows"], meta["y_rows"]
-    kern = partial(sellr_pallas_raw, stages=meta["stages"],
+    kern = partial(sellr_xla_raw, stages=meta["stages"],
                    rolls=meta["rolls"], x_rows=x_rows, y_rows=y_rows)
 
     if D.strategy == "allgather":

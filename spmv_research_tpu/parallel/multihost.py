@@ -30,8 +30,9 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    process_id: Optional[int] = None) -> None:
     """Initialize the JAX multi-host runtime (no-op when single-process).
 
-    In managed environments (GKE/TPU VMs) arguments are auto-detected;
-    otherwise pass coordinator host:port, world size and rank explicitly.
+    In managed cluster environments arguments may be auto-detected;
+    otherwise (as on a bare GPU host) pass coordinator host:port, world
+    size and rank explicitly.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(

@@ -216,9 +216,9 @@ def make_precond_state(host_csr, precond: str, dtype=jnp.float32):
     """Like :func:`make_precond` but returns ``(apply_fn, state)`` with the
     preconditioner's arrays in a pytree ``state``, so a benchmark can jit
     ``lambda A, b, state: cg(A, b, precond_fn=lambda r: apply_fn(state, r))``
-    with the arrays as ARGUMENTS — closed-over arrays become HLO constants
-    and re-trace on every call (round-3 CG rows measured ~5000× host-tracing
-    overhead as "solve time"; VERDICT r3 weak #1)."""
+    with the arrays as ARGUMENTS — closed-over arrays become program
+    constants and re-trace on every call, which a timer would then count as
+    "solve time"."""
     if precond == "jacobi":
         inv_diag = _jacobi_inv_diag(host_csr, dtype)
         return (lambda st, r: st * r), inv_diag

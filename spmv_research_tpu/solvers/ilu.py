@@ -3,7 +3,7 @@
 Required by BASELINE.json config #4 (beyond the reference's workloads; the
 reference's preconditioning is Jacobi-only — ``bench_cg.cpp:116-135``).
 
-TPU-native split (SURVEY.md §7 "hard parts"):
+Host/device split (SURVEY.md §7 "hard parts"):
 * numeric factorization is inherently sequential along rows → host-side
   (numpy row sweep; a C++ implementation can swap in transparently),
 * triangular solves are level-scheduled: the host computes the dependency
@@ -194,9 +194,8 @@ def build_level_schedule(T: HostCSR, lower: bool = True,
     W = max(int(offd.max()) if m else 0, 1)
 
     # the dense (n_levels, R, W) padding explodes on scattered matrices
-    # with deep dependency chains (round-3: the scircuit twin's schedule
-    # reached tens of GB and killed the remote worker mid-transfer) —
-    # refuse with a clean error so build_schedule falls back to the
+    # with deep dependency chains (the scircuit twin's schedule reaches
+    # tens of GB) — refuse with a clean error so build_schedule falls back to the
     # chunked formulation. Bound computed from the REAL dtypes (the old
     # (W+1)*8 estimate admitted ~3 GB schedules past a 2 GB guard).
     val_isz = np.dtype(dtype).itemsize
@@ -250,8 +249,8 @@ class ChunkSchedule:
     """Slot-chunked level schedule: memory bounded by nnz + n_levels·C.
 
     The dense ``LevelSchedule`` pads to (n_levels, max_rows, max_width) and
-    explodes on scattered matrices with deep dependency chains (round-3:
-    the scircuit twin's schedule killed the remote worker). Here the solve
+    explodes on scattered matrices with deep dependency chains (the
+    scircuit twin's schedule reaches tens of GB). Here the solve
     is a ``lax.scan`` over fixed-size chunks of ``C`` slots, slots ordered
     (level, row); a level's slots are padded to whole chunks, rows wider
     than ``C`` straddle chunks via a scalar carry. Per-slot cost is 20 B.
@@ -410,12 +409,11 @@ class BandScheduleError(ValueError):
 
 @dataclasses.dataclass
 class BandBlockSchedule:
-    """Band-block back-substitution: the MXU trisolve for banded factors.
+    """Band-block back-substitution: the dense-matmul trisolve for banded
+    factors.
 
     The level-scheduled solves are latency-bound: every scan step does an
-    element gather + segment sum over <= C slots, and the XLA element
-    gather runs at ~15 ns/element, capping the chunked formulation at
-    ~0.1 GFLOPS (round-4 verdict weak #3). For banded factors (the RCM'd
+    element gather + segment sum over <= C slots. For banded factors (the RCM'd
     FEM class the solver set mostly is) there is a gather-free
     formulation: partition rows into B-row blocks; with bandwidth(T)
     <= Q*B, block k depends only on the Q preceding (following, for
@@ -426,7 +424,8 @@ class BandBlockSchedule:
     where D_k is the dense diagonal block (inverted at build, in fp64),
     C_k the dense (B, Q*B) coupling strip, and w_k the running window of
     the Q previous block solutions. The whole solve is one ``lax.scan``
-    of two dense matmuls per step — MXU work, zero gathers. Densifying
+    of two dense matmuls per step (fp32 at ``Precision.HIGHEST``), zero
+    gathers. Densifying
     the band costs 4*m*(Q+1)*B bytes; the builder refuses matrices where
     that exceeds ``max_bytes`` (scattered factors keep the chunked scan).
     """
@@ -568,11 +567,11 @@ def _sptrsv_band(sched: BandBlockSchedule, b: jnp.ndarray) -> jnp.ndarray:
         invD_k, C_k, b_k, kk, oc, ov, orw = xs
         wstart = kk * B if sched.lower else (kk + 1) * B
         w = jax.lax.dynamic_slice(xf, (wstart,), (Q * B,))
-        t = b_k - C_k @ w
+        t = b_k - jnp.dot(C_k, w, precision=jax.lax.Precision.HIGHEST)
         if has_out:
             g = ov * xf.at[oc].get(mode="promise_in_bounds")
             t = t - jax.ops.segment_sum(g, orw, num_segments=B + 1)[:B]
-        x_k = invD_k @ t
+        x_k = jnp.dot(invD_k, t, precision=jax.lax.Precision.HIGHEST)
         xf = jax.lax.dynamic_update_slice(xf, x_k, (off + kk * B,))
         return xf, x_k
 
@@ -588,7 +587,7 @@ def _sptrsv_band(sched: BandBlockSchedule, b: jnp.ndarray) -> jnp.ndarray:
 
 def build_schedule(T: HostCSR, lower: bool = True, dtype=jnp.float32,
                    band_block: bool = True):
-    """Band-block MXU solve for banded factors; dense level schedule when
+    """Band-block matmul solve for banded factors; dense level schedule when
     its padding is modest; chunked-scan program otherwise."""
     if band_block:
         try:

@@ -1,14 +1,13 @@
-"""Per-format HBM roofline model.
+"""Per-format HBM roofline model and the device table it divides by.
 
 The reference's ``mem_footprint`` / ``mem_ratio`` CSV columns
 (``bench_spmv.cpp:479-480``) exist to support exactly this model: SpMV is
 memory-bound, so speed-of-light time = bytes-touched / HBM bandwidth, and the
-per-format bytes/nnz ratio decides which format wins.  BASELINE.md sets the
-1-chip target as ≥80% of this roofline for CSR.
+per-format bytes/nnz ratio decides which format wins.
 
 bytes(SpMV) = format footprint (streamed once)
             + x read (n·vb; assumes each x element is read ~once from HBM —
-              post-RCM/σ-sort locality keeps re-reads in VMEM)
+              post-RCM/σ-sort locality keeps re-reads in cache)
             + y write (m·vb).
 """
 
@@ -18,36 +17,38 @@ import dataclasses
 
 import jax
 
-# device_kind substring → (HBM GB/s, HBM GiB, peak f32 TFLOP/s)
-_TPU_SPECS = {
-    "v5 lite": (819e9, 16, 98.3),     # v5e (public spec: 819 GB/s, 197 bf16 TFLOPs)
-    "v5e": (819e9, 16, 98.3),
-    "v5p": (2765e9, 95, 229.5),
-    "v4": (1228e9, 32, 137.5),
-    "v6 lite": (1640e9, 32, 229.5),   # v6e / Trillium
-    "v6e": (1640e9, 32, 229.5),
-}
 
-_DEFAULT = (819e9, 16, 98.3)
-
-
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class DeviceSpec:
     kind: str
-    hbm_bw: float       # bytes/s
-    hbm_gib: float
-    peak_tflops: float
+    hbm_bw: float             # bytes/s
+    hbm_gb: float             # device memory, GB (1e9 bytes)
+    peak_fp32_tflops: float   # outside the tensor cores
+    peak_fp64_tflops: float   # outside the tensor cores
+    source: str = ""
+
+
+# Published peaks, keyed by ``device.device_kind`` exactly as JAX reports it.
+# A device that is not here is an error, never a default.
+_DEVICES = {
+    "NVIDIA H200": DeviceSpec(
+        kind="NVIDIA H200", hbm_bw=4.8e12, hbm_gb=141.0,
+        peak_fp32_tflops=67.0, peak_fp64_tflops=34.0,
+        source="NVIDIA H200 Tensor Core GPU data sheet, SXM column "
+               "(4.8 TB/s HBM3e, 141 GB, FP32 67 TFLOPS, FP64 34 TFLOPS)"),
+}
 
 
 def device_spec(device=None) -> DeviceSpec:
+    """Published peaks of ``device`` (default: the first JAX device)."""
     if device is None:
-        devs = jax.devices()
-        device = devs[0]
-    kind = getattr(device, "device_kind", "unknown").lower()
-    for key, spec in _TPU_SPECS.items():
-        if key in kind:
-            return DeviceSpec(kind, *spec)
-    return DeviceSpec(kind, *_DEFAULT)
+        device = jax.devices()[0]
+    kind = getattr(device, "device_kind", "unknown")
+    try:
+        return _DEVICES[kind]
+    except KeyError:
+        raise ValueError(f"no published peaks for device kind {kind!r}; "
+                         f"known: {sorted(_DEVICES)}") from None
 
 
 def spmv_bytes(format_obj, value_bytes: int | None = None) -> int:
@@ -72,14 +73,14 @@ def spmv_roofline_time(format_obj, spec: DeviceSpec | None = None) -> float:
 def roofline_fraction(format_obj, measured_time: float,
                       spec: DeviceSpec | None = None) -> float:
     """achieved / speed-of-light (∈ (0, 1]; >1 would mean the model undercounts
-    reuse, e.g. x fully cached in VMEM)."""
+    reuse, e.g. x or the whole matrix held in the L2 cache)."""
     return spmv_roofline_time(format_obj, spec) / measured_time
 
 
 def csr_roofline_nnz_per_s(nnz: int, m: int, n: int, value_bytes: int,
                            spec: DeviceSpec | None = None) -> float:
-    """Speed-of-light nnz/s for *CSR storage* (the BASELINE.md target metric),
-    independent of the format actually used."""
+    """Speed-of-light nnz/s for *CSR storage*, independent of the format
+    actually used."""
     spec = spec or device_spec()
     csr_bytes = nnz * (value_bytes + 4) + (m + 1) * 4 + (m + n) * value_bytes
     return nnz / (csr_bytes / spec.hbm_bw)

@@ -1,4 +1,4 @@
-"""BTILE (MXU tile SpMM/SDDMM engine) correctness vs scipy."""
+"""BTILE (dense-tile SpMM/SDDMM engine) correctness vs scipy."""
 
 import numpy as np
 import pytest
@@ -9,8 +9,7 @@ import jax.numpy as jnp
 from spmv_research_tpu.core.host import HostCSR
 from spmv_research_tpu.ops.btile import (
     BTileBuildError, build_btile, execute_btile_numpy,
-    sddmm_btile_xla, sddmm_slab_to_csr_values, spmm_btile_pallas,
-    spmm_btile_xla, sddmm_btile_pallas)
+    sddmm_btile_xla, sddmm_slab_to_csr_values, spmm_btile_xla)
 
 
 def _banded(m, n, nnz_row, bw, seed):
@@ -47,8 +46,6 @@ def test_btile_spmm_matches_scipy(m, n, nnz_row, bw, seed, k):
     np.testing.assert_allclose(got_np, ref, rtol=1e-4, atol=1e-5)
     got_xla = np.asarray(spmm_btile_xla(A, jnp.asarray(X, jnp.float32)))
     np.testing.assert_allclose(got_xla, ref, rtol=2e-5, atol=2e-5)
-    got_pl = np.asarray(spmm_btile_pallas(A, jnp.asarray(X, jnp.float32)))
-    np.testing.assert_allclose(got_pl, ref, rtol=2e-5, atol=2e-5)
 
 
 def test_btile_rejects_scattered():
@@ -75,11 +72,10 @@ def test_btile_sddmm_matches_dense(m, n, nnz_row, bw, seed, k):
     Bm = rng.uniform(-1, 1, (n, k))
     rows = np.repeat(np.arange(m), host.row_lengths())
     ref = np.sum(Am[rows] * Bm[host.ja], axis=1)
-    for fn in (sddmm_btile_xla, sddmm_btile_pallas):
-        slab = fn(A, jnp.asarray(Am, jnp.float32),
-                  jnp.asarray(Bm, jnp.float32))
-        got = sddmm_slab_to_csr_values(A, np.asarray(slab), host)
-        np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+    slab = sddmm_btile_xla(A, jnp.asarray(Am, jnp.float32),
+                           jnp.asarray(Bm, jnp.float32))
+    got = sddmm_slab_to_csr_values(A, np.asarray(slab), host)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
 
 
 def test_btile_empty_bands():
@@ -97,5 +93,5 @@ def test_btile_empty_bands():
     fmt = build_btile(host)
     X = np.ones((n, 16))
     ref = host.to_scipy() @ X
-    got = np.asarray(spmm_btile_pallas(fmt, jnp.asarray(X, jnp.float32)))
+    got = np.asarray(spmm_btile_xla(fmt, jnp.asarray(X, jnp.float32)))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)

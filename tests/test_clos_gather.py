@@ -23,7 +23,7 @@ def test_closg_numpy_vs_scipy(rng, m, n, density):
     assert np.max(np.abs(y - want) / scale) < 1e-6
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_closg_device_impls(rng, impl):
     import jax.numpy as jnp
 
@@ -53,7 +53,7 @@ def test_closg_pathological(rng):
     scale = np.abs(mat) @ np.abs(x) + 1e-30
     assert np.max(np.abs(execute_closg_numpy(A, x) - mat @ x) / scale) < 1e-6
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_closg_value_lut(rng, impl):
     """Pattern/quantized matrices: value dict rides r1 spare bits (DIV/CV
     compressed-value role) — footprint drops by the whole value plane."""
@@ -91,18 +91,17 @@ def test_closg_chunked(rng):
     assert isinstance(A, ClosGChunked) and len(A.chunks) > 1
     assert A.row_split[0] == 0 and A.row_split[-1] == host.m
     x = rng.uniform(-1, 1, 1500).astype(np.float32)
-    y = np.asarray(spmv(A, jnp.asarray(x), impl="pallas"))
+    y = np.asarray(spmv(A, jnp.asarray(x), impl="xla"))
     want = mat @ x.astype(np.float64)
     assert np.allclose(y, want, atol=1e-4)
     y64 = execute_closg_numpy(A, x.astype(np.float64))
     assert np.allclose(y64, want, atol=1e-8)
 
 
-@pytest.mark.parametrize("impl", ["pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_closg_fused_windows(rng, impl):
-    """Opt-in fused-window front end: x windows sliced in-kernel from the
-    compacted VMEM x plane via the conflict-free rot-select pick (rot rides
-    r1 spare bits [7,10) of the spare field)."""
+    """Opt-in fused-window build (rot rides r1 spare bits [7,10) of the
+    spare field): the extra bits must not disturb the lane pick."""
     import jax.numpy as jnp
 
     host = random_host_csr(500, 700, 0.01, rng)
@@ -115,8 +114,9 @@ def test_closg_fused_windows(rng, impl):
 
 
 def test_closg_scan_cap_extra_picks(rng):
-    """A few very long rows among short ones trigger the capped pallas scan
-    (window sums of width 2^K) + extra summed picks in extraction."""
+    """A few very long rows among short ones trigger the capped-scan build
+    (window sums of width 2^K + extra summed picks); the XLA and numpy
+    paths keep the full scan and must still agree with scipy."""
     import jax.numpy as jnp
     import scipy.sparse as sp
     from spmv_research_tpu.core.host import HostCSR
@@ -137,18 +137,15 @@ def test_closg_scan_cap_extra_picks(rng):
     assert A.scan_cap and len(A.scan_cap) < len(A.scan_stages)
     assert any(cls[3] for cls in A.yext_classes)   # accum classes present
     x = rng.uniform(-1, 1, n).astype(np.float32)
-    y = np.asarray(spmv(A, jnp.asarray(x), impl="pallas"))
+    y = np.asarray(spmv(A, jnp.asarray(x), impl="xla"))
     want = mat @ x.astype(np.float64)
     scale = np.abs(mat) @ np.abs(x).astype(np.float64) + 1e-30
     assert np.max(np.abs(y - want) / scale) < 1e-5
-    # XLA + numpy paths keep the full scan and must agree too
-    y2 = np.asarray(spmv(A, jnp.asarray(x), impl="xla"))
-    assert np.max(np.abs(y2 - want) / scale) < 1e-5
     y3 = execute_closg_numpy(A, x.astype(np.float64))
     assert np.max(np.abs(y3 - want) / scale) < 1e-6   # fp32 value plane
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_closg_high_degree(rng, impl):
     """Dense rows (~70 nnz/row, the raefsky3-twin regime): extraction spans
     many window octaves (W > 8, 9-bit cid) and many candidates (C > 32)."""
@@ -174,7 +171,7 @@ def test_closg_high_degree(rng, impl):
     assert np.max(np.abs(y64 - want) / scale) < 1e-6
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_closg_spmm_scan(rng, impl):
     """CLOSG SpMM = lax.scan over X columns (one compiled SpMV body;
     reference bench_spmm.cpp K_DIM role)."""

@@ -1,6 +1,6 @@
 """SPMD distributed SELLR on the virtual 8-device CPU mesh.
 
-VERDICT round 1, item 3: the flagship engine must run as one shard_map
+The engine must run as one shard_map
 program (shape-uniform per-shard SELLR), and the ring strategy's per-step
 work must be 1/k of the total nnz (build-time column partitioning, not
 masked re-reads)."""
@@ -64,7 +64,7 @@ def test_ring_total_work_is_nnz_not_k_nnz(problem, mesh):
     """Ring step j on device d executes only the (d, (d+j)%k) column-block
     program. Each nnz is therefore touched EXACTLY ONCE across the k steps
     (build-time column partitioning) — the round-1 CSR ring re-read all
-    local nnz every step, k x the work (VERDICT round 1, weak item 5).
+    local nnz every step, k x the work.
 
     (Per-STEP totals are matrix-dependent: a banded matrix concentrates
     its nnz in the diagonal blocks, so step 0 carries most of the work

@@ -91,7 +91,8 @@ def test_roofline_model_values():
     rng = np.random.Generator(np.random.PCG64(9))
     h = random_host_csr(200, 200, 0.05, rng)
     A = build_csr(h)
-    spec = rl.DeviceSpec("test", hbm_bw=800e9, hbm_gib=16, peak_tflops=100)
+    spec = rl.DeviceSpec("test", hbm_bw=800e9, hbm_gb=16,
+                         peak_fp32_tflops=100, peak_fp64_tflops=50)
     t = rl.spmv_roofline_time(A, spec)
     expected_bytes = h.nnz * 8 + 201 * 4 + 400 * 4
     np.testing.assert_allclose(t, expected_bytes / 800e9, rtol=1e-12)
@@ -101,7 +102,39 @@ def test_roofline_model_values():
 
 
 def test_device_spec_detection():
+    """The CPU has no row in the device table: asking for its peaks is an
+    error, never a silent default."""
     from spmv_research_tpu.utils.roofline import device_spec
 
-    spec = device_spec()
-    assert spec.hbm_bw > 0 and spec.peak_tflops > 0
+    with pytest.raises(ValueError, match="no published peaks"):
+        device_spec()
+
+
+def test_device_spec_h200():
+    from types import SimpleNamespace
+    from spmv_research_tpu.utils.roofline import device_spec
+
+    spec = device_spec(SimpleNamespace(device_kind="NVIDIA H200"))
+    assert spec.hbm_bw == 4.8e12 and spec.hbm_gb == 141.0
+    assert spec.peak_fp32_tflops == 67.0 and spec.peak_fp64_tflops == 34.0
+    assert "data sheet" in spec.source
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA A100-SXM4-80GB",
+                                  "NVIDIA H100 80GB HBM3", "unknown"])
+def test_device_spec_unknown_kind_raises(kind):
+    from types import SimpleNamespace
+    from spmv_research_tpu.utils.roofline import device_spec
+
+    with pytest.raises(ValueError):
+        device_spec(SimpleNamespace(device_kind=kind))
+
+
+def test_bench_spmv_cpu_roofline_not_measured(rng):
+    """On the CPU the roofline share is nan ("not measured"), not a number
+    divided by some other device's bandwidth."""
+    h = random_host_csr(128, 128, 0.05, rng)
+    cfg = BenchConfig(min_num_loops=4, min_time_s=0.01, warmup_iters=2,
+                      inner_iters=2)
+    r = bench_spmv(h, build_csr(h), config=cfg, impl="xla")
+    assert np.isnan(r.roofline_frac)

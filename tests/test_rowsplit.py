@@ -2,7 +2,7 @@
 
 Reference role: "perfect nnz balance" mid-row splitting
 (``benchmark_code/BENCH/src/spmv_kernels/csr.cpp:96-108,655-710``) and DIV
-work stealing for skewed rows (``DIV/div.cpp:991-1060``) — realized on TPU
+work stealing for skewed rows (``DIV/div.cpp:991-1060``) — realized here
 as a build-time row subdivision + partial-sum combine.
 """
 
@@ -62,7 +62,7 @@ def test_split_noop_below_threshold(rng):
     assert csr2 is host and heavy is None and seg_ptr is None
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_closg_auto_rowsplit_device(rng, impl):
     """build_clos_gather_auto wraps skewed matrices in RSPLIT transparently."""
     import jax.numpy as jnp
@@ -93,7 +93,7 @@ def test_closg_auto_no_split_for_uniform(rng):
     assert A.format_name == "CLOSG"
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("impl", ["xla"])
 def test_rowsplit_spmm(rng, impl):
     """RSPLIT SpMM: scanned column loop over the wrapped SpMV."""
     import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""SELLR engine: build + numpy/XLA/pallas(interpret) differential tests.
+"""SELLR engine: build + numpy/XLA differential tests.
 
 Strategy per SURVEY.md §4: golden-model differential testing against
 scipy.sparse on random + pathological matrices, fp32 gate 1e-7 relative
@@ -13,8 +13,8 @@ import jax.numpy as jnp
 
 from spmv_research_tpu.core.host import HostCSR
 from spmv_research_tpu.ops.sellr import (SellRBuildError, build_sellr,
-                                         execute_sellr_numpy,
-                                         spmv_sellr_pallas, spmv_sellr_xla)
+                                         execute_sellr_numpy, sellr_xla_raw,
+                                         spmv_sellr_xla)
 
 
 def _host(A):
@@ -46,8 +46,6 @@ def _check(A, factor=4.0, gate=2e-7):
     den = max(np.abs(y_ref).max(), 1e-30)
     assert np.abs(execute_sellr_numpy(F, x) - y_ref).max() / den < 1e-6
     xd = jnp.asarray(x, jnp.float32)
-    y_pl = np.asarray(spmv_sellr_pallas(F, xd)).astype(np.float64)
-    assert np.abs(y_pl - y_ref).max() / den < gate
     y_xla = np.asarray(spmv_sellr_xla(F, xd)).astype(np.float64)
     assert np.abs(y_xla - y_ref).max() / den < gate
     return F
@@ -110,3 +108,22 @@ def test_footprint_and_meta():
     # dirty chunks (if any) must each self-flush; clean runs flush on
     # group boundaries — every group's contributions reach y exactly once,
     # which the differential checks above already prove end-to-end.
+
+
+@pytest.mark.parametrize("band,nnzpr_hi,seed", [(300, 9, 11), (40, 6, 12)])
+def test_sellr_xla_raw_matches_numpy(band, nnzpr_hi, seed):
+    """The raw-array entry the distributed layer calls: x2d plane in,
+    (y_rows, 128) plane out, equal to the fp64 program replay."""
+    A, host = _host(_band(2500, 2500, band, nnzpr_hi, seed))
+    F = build_sellr(host)
+    x = np.random.default_rng(seed).standard_normal(host.n)
+    x2d = np.zeros(F.x_rows * 128, np.float32)
+    x2d[: host.n] = x
+    y2 = sellr_xla_raw(F.word, F.vals, F.smeta,
+                       jnp.asarray(x2d.reshape(F.x_rows, 128)),
+                       stages=F.stages, rolls=F.rolls, x_rows=F.x_rows,
+                       y_rows=F.y_rows)
+    assert y2.shape == (F.y_rows, 128)
+    want = execute_sellr_numpy(F, x.astype(np.float32).astype(np.float64))
+    y = np.asarray(y2, np.float64).reshape(-1)[: host.m]
+    assert np.abs(y - want).max() / max(np.abs(want).max(), 1e-30) < 2e-7

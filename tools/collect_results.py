@@ -137,7 +137,7 @@ def workloads_summary(merged):
 
 
 def _row_kind(fmt: str) -> str:
-    """Per-twin coverage class (round-4 verdict next #1): an ENGINE row,
+    """Per-twin coverage class: an ENGINE row,
     a labeled DENSE fallback, or the CSR baseline standing in."""
     if fmt.startswith("DENSE"):
         return "fallback:dense"
@@ -149,7 +149,7 @@ def _row_kind(fmt: str) -> str:
 def main():
     out_dirs = sys.argv[1:] or ["out_logs_r2"]
     merged, best = merge(out_dirs)
-    lines = ["# Corpus summary — SpMV on the validation twins (TPU v5e)", "",
+    lines = ["# Corpus summary — SpMV on the validation twins", "",
              "| matrix | best row | kind | Gnnz/s | GFLOPS | roofline frac |"
              " speedup vs XLA-CSR |", "|---|---|---|---|---|---|---|"]
     import math

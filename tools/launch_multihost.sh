@@ -1,14 +1,14 @@
 #!/usr/bin/env bash
 # Multi-host launch example — the role of the reference's slurm*/pbs* scripts
 # (which launch independent single-node jobs; here hosts form ONE distributed
-# runtime over DCN via jax.distributed).
+# runtime via jax.distributed).
 #
-# On each host of the pod slice (or via your scheduler's per-node task):
+# On each host (or via your scheduler's per-node task):
 #   COORDINATOR=<host0-ip>:8476 NUM_HOSTS=<N> HOST_ID=<rank> \
 #       bash tools/launch_multihost.sh <script.py> [args...]
 #
-# On managed TPU VMs (GKE/queued resources) jax.distributed auto-detects all
-# three values and the env vars can be omitted.
+# Nothing on a bare GPU host tells JAX of a cluster: give all three values
+# (COORDINATOR may be localhost:<free port> for processes of one host).
 set -euo pipefail
 SCRIPT="${1:?usage: launch_multihost.sh <script.py> [args...]}"
 shift

@@ -1,6 +1,10 @@
 #!/usr/bin/env python
 """Dump device/topology info — role of the reference's machines_info/
-(lstopo + lscpu dumps): what hardware did these numbers come from."""
+(lstopo + lscpu dumps): what hardware did these numbers come from.
+
+Usage: python tools/machine_info.py
+"""
+import dataclasses
 import json
 import sys
 
@@ -10,19 +14,15 @@ sys.path.insert(0, ".")
 def main():
     import jax
     from spmv_research_tpu.utils.roofline import device_spec
+    from spmv_research_tpu.utils.runtime import device_record
 
-    devs = jax.devices()
-    spec = device_spec()
-    info = {
-        "backend": jax.default_backend(),
-        "device_count": jax.device_count(),
-        "devices": [str(d) for d in devs],
-        "device_kind": devs[0].device_kind if devs else None,
-        "hbm_bw_GBps": spec.hbm_bw / 1e9,
-        "hbm_GiB": spec.hbm_gib,
-        "peak_f32_tflops": spec.peak_tflops,
-        "process_count": jax.process_count(),
-    }
+    info = device_record()
+    info["devices"] = [str(d) for d in jax.devices()]
+    info["process_count"] = jax.process_count()
+    try:
+        info["published_peaks"] = dataclasses.asdict(device_spec())
+    except ValueError as e:          # no table row (e.g. the CPU backend)
+        info["published_peaks"] = str(e)
     print(json.dumps(info, indent=2))
 
 

@@ -5,8 +5,8 @@ assert the disk-sourced results match the in-memory path.
 The reference crosses MatrixMarket I/O on every run (``bench.cpp:560`` ->
 ``matrix_market.c:258``); this drives the same layer: generator ->
 ``mtx_write`` -> ``mtx_read`` (native parser when built) -> ``coo_to_csr``
--> format build -> bench -> CSV. Run on the TPU backend for the committed
-evidence rows (out_logs_r4_mtx/).
+-> format build -> bench -> CSV. Device numbers come only from a run on the
+GPU; on the CPU it checks the I/O path.
 
 Usage: python tools/mtx_sweep.py [outdir] [n_twins]
 """
@@ -20,7 +20,7 @@ sys.path.insert(0, ".")
 
 
 def main():
-    outdir = sys.argv[1] if len(sys.argv) > 1 else "out_logs_r4_mtx"
+    outdir = sys.argv[1] if len(sys.argv) > 1 else "out_logs/mtx_sweep"
     n_twins = int(sys.argv[2]) if len(sys.argv) > 2 else 5
 
     from spmv_research_tpu.core.host import HostCOO
@@ -62,7 +62,7 @@ def main():
         print("# MTX_VERIFY_ONLY set: skipping the bench sweep", flush=True)
         return
     run_sweep(paths, formats=["csr", "closg"], workloads=["spmv"],
-              impls=["xla", "pallas"], out_dir=outdir,
+              impls=["xla"], out_dir=outdir,
               config=BenchConfig.from_env())
 
 

@@ -1,7 +1,6 @@
 #!/usr/bin/env python
-"""Real ≥2-process distributed run on the CPU backend (VERDICT r3
-component table: 'HPC launchers / multi-host bootstrap — never run ≥2
-processes'). Each process owns 4 virtual CPU devices; the 2-process
+"""Real ≥2-process distributed run on the CPU backend (the multi-host
+bootstrap exercised with two processes). Each process owns 4 virtual CPU devices; the 2-process
 global mesh (8 devices) executes the distributed SpMV with each halo
 strategy, and rank 0 gates the result against scipy.
 

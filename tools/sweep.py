@@ -32,12 +32,14 @@ def main():
     ap.add_argument("--out", default="out_logs")
     ap.add_argument("--job", action="append", default=[],
                     help="semicolon-separated job spec run IN THIS process "
-                         "(a new process pays a ~10-min remote-worker "
-                         "handshake): "
+                         "(jobs share one device client and compile cache): "
                          "'mats=FILE;formats=a,b;workloads=x,y;impls=i,j"
                          ";kdim=64;out=DIR'. Repeatable; jobs run in order.")
     args = ap.parse_args()
 
+    from spmv_research_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     from spmv_research_tpu.harness import run_sweep, BenchConfig
 
     if args.job:
@@ -61,8 +63,6 @@ def main():
                           impls=kv["impls"].split(",") if kv.get("impls") else None,
                           out_dir=kv.get("out", args.out),
                           config=cfg)
-            except SystemExit:
-                raise           # worker death: restart wrapper handles it
             except Exception as e:
                 print(f"### job failed: {type(e).__name__}: {e}",
                       flush=True)

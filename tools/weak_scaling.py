@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Weak-scaling artifact: distributed SpMV over a virtual 8-device CPU
-mesh (the multi-chip validation surface this environment has; real
-multi-chip runs use the same code via jax.distributed — SURVEY.md §5.8).
+"""Weak-scaling check: distributed SpMV over a virtual 8-device CPU mesh
+(control flow and the efficiency bookkeeping; CPU times are not device
+numbers — the four-card path is ``chip_smoke.py --cards 4``).
 
-Writes results/weak_scaling_cpu8.csv:
+Writes out_logs/weak_scaling_cpu8.csv:
   strategy, devices, rows_per_device, nnz, time_iter_s, efficiency
 """
 import os
@@ -19,8 +19,9 @@ def main():
     from spmv_research_tpu.parallel import weak_scaling_efficiency
 
     rows = int(sys.argv[1]) if len(sys.argv) > 1 else 50_000
-    out_path = os.path.join(os.path.dirname(__file__), "..", "results",
-                            "weak_scaling_cpu8.csv")
+    out_dir = os.path.join(os.path.dirname(__file__), "..", "out_logs")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, "weak_scaling_cpu8.csv")
     with open(out_path, "w") as f:
         f.write("strategy,devices,rows_per_device,nnz,time_iter_s,"
                 "efficiency,efficiency_overhead\n")
