@@ -14,7 +14,9 @@ One card:
      -> ``bench_spmv`` against the longdouble gold.
   3. The other workloads on the scircuit twin, each against a host fp64
      reference: SpMM and SDDMM through CSR/xla at K=64, Jacobi-CG on the SPD
-     analog to its tolerance, and the double-single CSRDS fp64 SpMV.
+     analog to its tolerance, and the double-single CSRDS fp64 SpMV. Then
+     BTILE's SpMM and SDDMM at K=64 beside CSR/xla's on the cant twin (a
+     FEM matrix dense enough to fill (8,128) tiles; scircuit is not).
   4. The engines' XLA lowerings on a column-locality twin (mac_econ_fwd500)
      beside CSR/xla, with the engine/CSR time ratio.
 
@@ -93,6 +95,14 @@ def gate(phase: str, value: float, limit: float, what: str):
         raise PhaseFailure(f"{phase}: {what} {value:.3e} > gate {limit:g}")
 
 
+def first_call_s(fn, *args):
+    """Seconds of the first call (trace, compile, one run)."""
+    import jax
+    t0 = time.perf_counter()
+    jax.block_until_ready(fn(*args))
+    return time.perf_counter() - t0
+
+
 def timed(fn, *args, reps: int = 5):
     """(first-call seconds incl. compile, median steady seconds, output);
     host clock around block_until_ready."""
@@ -153,44 +163,70 @@ def phase_hbm(cfg, line, name):
     return r
 
 
-def phase_workloads(host, K=64):
+def workload_line(cfg, host, A, workload, name, K):
+    """SpMM or SDDMM of format A at width K through its XLA lowering:
+    differential-chain time and mape against the harness's fp64 host
+    reference (``harness.workloads``)."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from spmv_research_tpu.harness.metrics import FP32_MAPE_GATE
+    from spmv_research_tpu.harness.workloads import bench_sddmm, bench_spmm
+    from spmv_research_tpu.ops import sddmm, spmm
+
+    Xn = jnp.ones((host.n, K), jnp.float32)
+    if workload == "spmm":
+        t_c = first_call_s(jax.jit(lambda A_, X_: spmm(A_, X_, impl="xla")),
+                           A, Xn)
+        run = bench_spmm
+    else:
+        Xm = jnp.ones((host.m, K), jnp.float32)
+        t_c = first_call_s(jax.jit(
+            lambda A_, a, b: sddmm(A_, a, b, impl="xla")), A, Xm, Xn)
+        run = bench_sddmm
+    r = run(host, A, config=dataclasses.replace(cfg, k_dim=K), impl="xla",
+            matrix_name=name)
+    report("3", workload=workload, matrix=name, format=f"{A.format_name}/xla",
+           m=host.m, nnz=host.nnz, K=K, precision="fp32",
+           mape=f"{r.mape:.3e}", mape_gate=FP32_MAPE_GATE,
+           max_abs_err=f"{r.max_ae:.3e}", compile_s=f"{t_c:.3f}",
+           median_us=f"{r.time_iter_median * 1e6:.6g}",
+           gflops=f"{r.gflops:.6g}")
+    gate(f"3 {workload} {A.format_name}", r.mape, FP32_MAPE_GATE, "mape")
+    return r
+
+
+def phase_tiles(cfg, line, name, K=64):
+    """BTILE's tile-matmul SpMM/SDDMM beside CSR/xla's on one matrix."""
+    import jax.numpy as jnp
+    from spmv_research_tpu.convert import build_csr
+    from spmv_research_tpu.gen import generate_from_line
+    from spmv_research_tpu.ops import build_btile
+
+    host, _ = generate_from_line(line)
+    A = build_csr(host, dtype=jnp.float32)
+    B = build_btile(host)
+    for workload in ("spmm", "sddmm"):
+        rc = workload_line(cfg, host, A, workload, name, K)
+        rb = workload_line(cfg, host, B, workload, name, K)
+        report("3", workload=workload, matrix=name, engine="BTILE/xla",
+               ratio_engine_over_csr=f"{rb.time_iter_median / rc.time_iter_median:.4g}",
+               ntiles=B.ntiles, slots_per_nnz=f"{B.ntiles * 1024 / host.nnz:.3g}")
+
+
+def phase_workloads(cfg, host, K=64):
     import jax
     import jax.numpy as jnp
     from spmv_research_tpu.convert import build_csr, make_spd
     from spmv_research_tpu.harness import bench_spmv
-    from spmv_research_tpu.harness.metrics import (FP32_MAPE_GATE,
-                                                   error_metrics)
-    from spmv_research_tpu.ops import build_csrds, spmm, sddmm
+    from spmv_research_tpu.ops import build_csrds
     from spmv_research_tpu.solvers import cg
     from spmv_research_tpu.solvers.cg import _jacobi_inv_diag
 
     rng = np.random.default_rng(11)
     A = build_csr(host, dtype=jnp.float32)
-    S = host.to_scipy()
-
-    X = rng.uniform(0, 1, (host.n, K))
-    f = jax.jit(lambda A_, X_: spmm(A_, X_, impl="xla"))
-    t_c, t_s, Y = timed(f, A, jnp.asarray(X, jnp.float32))
-    m = error_metrics(S @ X, np.asarray(Y, np.float64), 1e-7)
-    report("3", workload="spmm", m=host.m, nnz=host.nnz, K=K,
-           precision="fp32", mape=f"{m.mape:.3e}", mape_gate=FP32_MAPE_GATE,
-           max_rel_err=f"{m.max_rel_err:.3e}", compile_s=f"{t_c:.3f}",
-           median_us=f"{t_s * 1e6:.6g}")
-    gate("3 spmm", m.mape, FP32_MAPE_GATE, "mape")
-
-    Am = rng.uniform(0, 1, (host.m, K))
-    Bm = rng.uniform(0, 1, (host.n, K))
-    f = jax.jit(lambda A_, a, b: sddmm(A_, a, b, impl="xla"))
-    t_c, t_s, C = timed(f, A, jnp.asarray(Am, jnp.float32),
-                        jnp.asarray(Bm, jnp.float32))
-    rows = np.repeat(np.arange(host.m), host.row_lengths())
-    ref = np.einsum("ij,ij->i", Am[rows], Bm[host.ja])
-    m = error_metrics(ref, np.asarray(C, np.float64)[: host.nnz], 1e-7)
-    report("3", workload="sddmm", m=host.m, nnz=host.nnz, K=K,
-           precision="fp32", mape=f"{m.mape:.3e}", mape_gate=FP32_MAPE_GATE,
-           max_rel_err=f"{m.max_rel_err:.3e}", compile_s=f"{t_c:.3f}",
-           median_us=f"{t_s * 1e6:.6g}")
-    gate("3 sddmm", m.mape, FP32_MAPE_GATE, "mape")
+    workload_line(cfg, host, A, "spmm", "scircuit_twin", K)
+    workload_line(cfg, host, A, "sddmm", "scircuit_twin", K)
 
     spd = make_spd(host)
     Aspd = build_csr(spd, dtype=jnp.float32)
@@ -238,7 +274,7 @@ def engine_table(phase, name, results):
 
 
 def run_one_card(bench_line=None, hbm_line=None, locality_line=None,
-                 cfg=None):
+                 tile_line=None, cfg=None):
     """Phases 1-4; the lines default to the real twins (smaller ones let
     the same code be rehearsed on the CPU)."""
     from spmv_research_tpu.harness import BenchConfig
@@ -254,7 +290,8 @@ def run_one_card(bench_line=None, hbm_line=None, locality_line=None,
     log(f"# phase 2 done ({time.time() - t0:.1f}s)")
 
     t0 = time.time()
-    phase_workloads(host)
+    phase_workloads(cfg, host)
+    phase_tiles(cfg, tile_line or twin_line("cant"), "cant_twin")
     log(f"# phase 3 done ({time.time() - t0:.1f}s)")
 
     t0 = time.time()

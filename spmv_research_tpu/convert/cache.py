@@ -37,9 +37,10 @@ def matrix_digest(csr: HostCSR) -> str:
     return h.hexdigest()[:24]
 
 
-SCHEMA_VERSION = 19  # bump when any format pytree's field set changes
-                     # (14: SellW stage classes; 15: part_cap default 8;
-                     # 19: SellW drops stream_wins)
+SCHEMA_VERSION = 20  # bump when any format pytree's field set changes
+                     # (15: part_cap default 8; 19: SellW drops stream_wins;
+                     # 20: SellW drops stage classes, ClosG its window and
+                     # scan-cap planes, ClosGX gathers end slots)
 
 
 def _key(csr: HostCSR, fmt_name: str, kwargs: dict) -> str:

@@ -147,7 +147,7 @@ def route_invreg(vreg: np.ndarray, pos_src: np.ndarray, pos_dst: np.ndarray,
 
 def apply_invreg_numpy(v: np.ndarray, p: InVregPlanes) -> np.ndarray:
     """Reference execution of one in-vreg layer on a (8·n_vregs, n_lanes)
-    array (mirrors the Pallas kernel op-for-op)."""
+    array (mirrors the XLA lowering ``clos._invreg_xla`` op-for-op)."""
     S, W = v.shape
     t1 = np.take_along_axis(v, p.lane1.astype(np.int64), axis=1)
     rows = np.arange(S)

@@ -9,20 +9,17 @@ chunk pipeline — each chunk's planes are read once (they are scanned xs).
 
 Uniformity requirements and how they are met (host-side, at build):
   * N, V           — ``build_clos_gather(force_N=2^20)`` pads every chunk.
-  * scan stages    — capping disabled (``cap_scan=False``; its synthetic
-    extra picks assume per-chunk cap widths); the canonical stage count is
-    the max over chunks — extra stages on shorter chunks are identity
-    (their guard bits are zero). Stages ≤ 14 always (the auto router
-    long-row-splits rows past 16k nnz), so guards fit r3's 15 spare bits
-    and the scan_hi plane is never needed.
-  * y-extraction   — window classes are rounded up to powers of two
-    (``class_pow2=True``) so all chunks draw from one canonical class set
-    {1,2,4,...,64}; per-chunk (base, count) pairs ride in ``clsmeta`` and the
-    kernel's class loops are ``fori_loop`` with dynamic counts (zero-trip
-    for absent classes).
+  * scan stages    — the canonical stage count is the max over chunks —
+    extra stages on shorter chunks are identity (their guard bits are
+    zero). Stages ≤ 14 always (the auto router long-row-splits rows past
+    16k nnz), so guards fit r3's 15 spare bits and the scan_hi plane is
+    never needed.
+  * y-extraction   — ``yslot`` names each y row's end slot in its chunk's
+    scan output (-1: empty row or padding), padded to the largest chunk's
+    row count; extraction is one element gather per y row.
   * row alignment  — chunk row boundaries are multiples of 128, so the
     final y assembly is one row-granular gather over the stacked
-    (n_chunks·m_rows_pad, 128) output.
+    (n_chunks·mrp, 128) output.
 
 Reference role: this is what lets the single-chip engine cover the
 reference's largest validation matrices (audikw_1/cage15/kmer_V2a class,
@@ -44,14 +41,11 @@ from .dispatch import register_spmv, register_spmm
 from .clos import _register
 from .clos_route import BLK, LANES, SUB, ClosRoutingError
 
-_CLASS_WS = (1, 2, 4, 8, 16, 32, 64)   # canonical pow2 window classes
-
 
 @partial(_register,
-         data_fields=("rowidx", "vals", "r1", "r2", "r3", "ysel_w",
-                      "wstart", "border", "clsmeta", "ymap"),
+         data_fields=("rowidx", "vals", "r1", "r2", "r3", "yslot", "ymap"),
          meta_fields=("shape", "nnz", "nnz_expanded", "N", "V", "x_rows",
-                      "stages", "W", "mrp"))
+                      "stages", "mrp"))
 @dataclasses.dataclass(frozen=True)
 class ClosGX:
     """Stacked uniform CLOSG chunk programs (leading axis = chunk)."""
@@ -61,10 +55,7 @@ class ClosGX:
     r1: jnp.ndarray        # (C, S, 128) int32 packed (λ in spare bits)
     r2: jnp.ndarray
     r3: jnp.ndarray        # spare bits: scan guards
-    ysel_w: jnp.ndarray    # (C, mrp, 128) int32
-    wstart: jnp.ndarray    # (C, mrp) int32
-    border: jnp.ndarray    # (C, nb) int32 (src | dst<<16)
-    clsmeta: jnp.ndarray   # (C, 7, 2) int32 (base, count) per pow2 class
+    yslot: jnp.ndarray     # (C, mrp, 128) int32 end slot per row, -1 = none
     ymap: jnp.ndarray      # (R,) int32 rows into the stacked (C·mrp) output
     shape: Tuple[int, int]
     nnz: int
@@ -73,8 +64,7 @@ class ClosGX:
     V: int
     x_rows: int
     stages: int            # canonical scan stage count (= max over chunks)
-    W: int                 # canonical max window class
-    mrp: int               # m_rows_pad (uniform)
+    mrp: int               # 128-row y groups per chunk (uniform)
 
     format_name = "CLOSGX"
 
@@ -92,8 +82,7 @@ class ClosGX:
 
     def mem_footprint_bytes(self) -> int:
         leaves = (self.rowidx, self.vals, self.r1, self.r2, self.r3,
-                  self.ysel_w, self.wstart, self.border, self.clsmeta,
-                  self.ymap)
+                  self.yslot, self.ymap)
         return int(sum(l.size * l.dtype.itemsize for l in leaves))
 
 
@@ -148,7 +137,7 @@ def build_clos_gather_xl(csr: HostCSR, dtype=jnp.float32,
 
     # plane-budget guard BEFORE any chunk builds: on ultra-sparse wide
     # matrices (delaunay_n22 class: ~5 nnz/row over n=4M) the column-block
-    # padding inflates slots ~4x and ysel_w pads every chunk to the max
+    # padding inflates slots ~4x and yslot pads every chunk to the max
     # row count, so the stacked arguments exceed HBM at compile (observed
     # 17.6 GB on a 16 GB part after an 18-minute build). Fail fast with
     # the cost model instead; the chunked CSR baseline covers the class.
@@ -178,23 +167,18 @@ def build_clos_gather_xl(csr: HostCSR, dtype=jnp.float32,
     def _one(i):
         return build_clos_gather(_rows_slice(csr, splits[i], splits[i + 1]),
                                  dtype=dtype, max_N=chunk_N, force_N=chunk_N,
-                                 cap_scan=False, class_pow2=True,
                                  host_arrays=True)
 
     with ThreadPoolExecutor(2) as ex:
         chunks = list(ex.map(_one, range(len(splits) - 1)))
-    if any(c.W == 0 for c in chunks):
-        raise ClosRoutingError("XL chunk fell back to legacy extraction "
-                               "(window > 64 octaves)")
     if any(len(c.scan_stages) > 14 for c in chunks):
         raise ClosRoutingError("XL chunk needs > 14 scan stages "
                                "(row longer than 16k nnz unsplit?)")
 
     C = len(chunks)
     stages = max(len(c.scan_stages) for c in chunks)
-    W = max(c.W for c in chunks)
-    mrp = max(c.ysel_w.shape[0] for c in chunks)
-    nb = max(c.border.shape[0] for c in chunks)
+    rows_c = [splits[i + 1] - splits[i] for i in range(C)]
+    mrp = max((r + LANES - 1) // LANES for r in rows_c)
     S = SUB * chunks[0].V
 
     V = chunks[0].V
@@ -203,12 +187,7 @@ def build_clos_gather_xl(csr: HostCSR, dtype=jnp.float32,
     r1 = np.zeros((C, S, LANES), np.int32)
     r2 = np.zeros((C, SUB * BLK, V // SUB), np.int32)  # middle-stage shape
     r3 = np.zeros((C, S, LANES), np.int32)
-    ysel_w = np.zeros((C, mrp, LANES), np.int32)
-    # padded groups: empty bit set so a stray batch read yields zeros
-    ysel_w |= (1 << 16)
-    wstart = np.zeros((C, mrp), np.int32)
-    border = np.zeros((C, nb), np.int32)
-    clsmeta = np.zeros((C, len(_CLASS_WS), 2), np.int32)
+    yslot = np.full((C, mrp * LANES), -1, np.int32)
     ymaps = []
     for ci, c in enumerate(chunks):
         rowidx[ci] = np.asarray(c.rowidx)
@@ -216,29 +195,23 @@ def build_clos_gather_xl(csr: HostCSR, dtype=jnp.float32,
         r1[ci] = np.asarray(c.perm_r1)
         r2[ci] = np.asarray(c.perm_r2)
         r3[ci] = np.asarray(c.perm_r3)
-        k = c.ysel_w.shape[0]
-        ysel_w[ci, :k] = np.asarray(c.ysel_w)
-        wstart[ci, :k] = np.asarray(c.wstart)
-        border[ci, : c.border.shape[0]] = np.asarray(c.border)
-        for (w, base, count, accum) in c.yext_classes:
-            if accum:
-                raise ClosRoutingError("XL chunks must not carry accum "
-                                       "classes (capping is disabled)")
-            clsmeta[ci, _CLASS_WS.index(w)] = (base, count)
-        rows_c = (splits[ci + 1] - splits[ci] + LANES - 1) // LANES
-        ymaps.append(ci * mrp + np.arange(rows_c, dtype=np.int64))
+        # the scan leaves each row's total at its last CSR slot
+        ia = csr.ia[splits[ci]: splits[ci + 1] + 1].astype(np.int64)
+        yslot[ci, : rows_c[ci]] = np.where(ia[1:] > ia[:-1],
+                                           ia[1:] - 1 - ia[0], -1)
+        ymaps.append(ci * mrp + np.arange((rows_c[ci] + LANES - 1) // LANES,
+                                          dtype=np.int64))
     ymap = np.concatenate(ymaps).astype(np.int32)
 
     return ClosGX(
         rowidx=jnp.asarray(rowidx), vals=jnp.asarray(vals),
         r1=jnp.asarray(r1), r2=jnp.asarray(r2), r3=jnp.asarray(r3),
-        ysel_w=jnp.asarray(ysel_w), wstart=jnp.asarray(wstart),
-        border=jnp.asarray(border), clsmeta=jnp.asarray(clsmeta),
+        yslot=jnp.asarray(yslot.reshape(C, mrp, LANES)),
         ymap=jnp.asarray(ymap),
         shape=(m, n), nnz=csr.nnz, nnz_expanded=csr.nnz_expanded,
         N=chunk_N, V=chunk_N // BLK,
         x_rows=(n + LANES - 1) // LANES,
-        stages=stages, W=W, mrp=mrp)
+        stages=stages, mrp=mrp)
 
 
 # ---------------------------------------------------------------- execution
@@ -264,7 +237,7 @@ def spmv_closgx_xla(A: ClosGX, x: jnp.ndarray) -> jnp.ndarray:
         return jnp.take_along_axis(t2, (w >> LANE2_SHIFT) & 0x7F, axis=1)
 
     def body(carry, leaves):
-        rowidx, vals, r1, r2, r3, ysel_w, wstart, border, clsmeta = leaves
+        rowidx, vals, r1, r2, r3, yslot = leaves
         V = A.V
         wins = x2d.at[rowidx].get(mode="promise_in_bounds")
         g = jnp.take_along_axis(wins, (r1 >> SPARE_SHIFT) & 0x7F, axis=1)
@@ -278,21 +251,11 @@ def spmv_closgx_xla(A: ClosGX, x: jnp.ndarray) -> jnp.ndarray:
             guard = ((r3.reshape(-1) >> (SPARE_SHIFT + k)) & 1) != 0
             sh = jnp.roll(flat, 1 << k)
             flat = flat + jnp.where(guard, sh, 0.0)
-        v2 = flat.reshape(SUB * V, LANES)
-        # windowed extraction, XLA formulation: per y row, gather its
-        # window rows and pick (cid, lam)
-        sel = ysel_w
-        lam = sel & 0x7F
-        cid = (sel >> 7) & 0x1FF
-        empty = ((sel >> 16) & 1) != 0
-        src_row = jnp.clip(wstart[:, None] + cid, 0, SUB * V - 1)
-        y = v2[src_row, lam]          # per-element (row, lane) pick
-        y = jnp.where(empty, 0.0, y)
-        return carry, y
+        y = flat.at[jnp.maximum(yslot, 0)].get(mode="promise_in_bounds")
+        return carry, jnp.where(yslot >= 0, y, 0.0)
 
     _, ys = jax.lax.scan(
-        body, 0, (A.rowidx, A.vals, A.r1, A.r2, A.r3, A.ysel_w,
-                  A.wstart, A.border, A.clsmeta))
+        body, 0, (A.rowidx, A.vals, A.r1, A.r2, A.r3, A.yslot))
     rows = ys.reshape(A.n_chunks * A.mrp, LANES)
     y = rows.at[A.ymap].get(mode="promise_in_bounds")
     return y.reshape(-1)[: A.m]

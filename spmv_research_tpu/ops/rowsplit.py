@@ -6,8 +6,8 @@ across threads with a per-thread tail fixup ("perfect nnz balance",
 work stealing (``DIV/div.cpp:991-1060``). Here the analog is a *build-time*
 transform: rows longer than a threshold are cut into sub-rows of ≤ T nnz,
 the engine runs on the split matrix (whose bounded row length keeps the
-CLOSG y-extraction in its fast windowed regime and the segmented scan at
-≤ log2 T stages), and a combine pass sums each heavy row's sub-row partials.
+segmented scan at ≤ log2 T stages and lets a row span CLOSG chunks), and a
+combine pass sums each heavy row's sub-row partials.
 
 Layout: rows ``0..m-1`` of the split matrix are the original rows (heavy
 rows keep their first ≤ T nnz in place); the extra sub-rows are appended at

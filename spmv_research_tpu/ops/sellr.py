@@ -56,8 +56,8 @@ from .clos import _register
 from .clos_route import LANES, SUB
 
 GROUP = SUB * LANES          # 1024 rows per group
-NB = 64                      # chunks per grid step
-SMEM_BLK = 1024              # int32 per-step metadata block
+NB = 64                      # chunks per metadata step
+META_BLK = 1024              # int32 per-step metadata block
 _MAX_STAGES = 7
 
 
@@ -73,7 +73,7 @@ class SellR:
     word: jnp.ndarray    # (8·nch_pad, 128) int32 packed per-slot word
     vals: jnp.ndarray    # (8·nch_pad, 128) fp32 values (0 in padding)
     smeta: jnp.ndarray   # (nsteps·1024,) int32: per step, [0,512) wrow per
-                         # sublane; [512,576) per-chunk (ybase<<1 | flush)
+                         # sublane; [512,576) per-chunk first y2d row
     shape: Tuple[int, int]
     nnz: int
     nnz_expanded: int
@@ -143,7 +143,6 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
     gb_cache = {k: _guard_bits(k) for k in range(1, LANES + 1)}
     word_l, vals_l, wrow_l = [], [], []       # per sublane (128,) arrays
     chunk_of = []                             # per chunk: group id
-    chunk_smax_l = []                         # per chunk: scan stages needed
     max_part = 1
 
     a32 = csr.a.astype(dt)
@@ -183,7 +182,7 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
         order = np.lexsort((-plen, rowl[pstart] >> 7, xrow[pstart]))
         # allocator state: per open sublane of current bin
         sub_words, sub_vals, sub_wrow = [], [], []   # this group's sublanes
-        sub_tcnt, sub_maxp = [], []                  # tsrow histogram, max k
+        sub_tcnt = []                                # tsrow histogram
         open_pos, open_taken, open_idx = [], [], []  # current bin's subs
         cur_xrow = -1
         for t in order:
@@ -198,8 +197,8 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
                 open_pos, open_taken, open_idx = [], [], []
             s = -1
             # restrict first-fit to the newest 2 open sublanes: backtracking
-            # into older tails mixes tsrows into one list, which blows up
-            # the per-step roll masks
+            # into older tails mixes tsrows into one list, which grows the
+            # roll set (one masked pass over the planes per roll)
             for q in range(max(0, len(open_pos) - 2), len(open_pos)):
                 if open_pos[q] + k <= LANES and not (
                         open_taken[q] >> tlane) & 1:
@@ -213,7 +212,6 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
                 sub_vals.append(np.zeros(LANES, dt))
                 sub_wrow.append(xr)
                 sub_tcnt.append([0] * SUB)
-                sub_maxp.append(1)
                 s = len(open_pos) - 1
             si = open_idx[s]
             pos = open_pos[s]
@@ -230,14 +228,13 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
             open_taken[s] |= 1 << tlane
             max_part = max(max_part, k)
             sub_tcnt[si][tsrow] += 1
-            sub_maxp[si] = max(sub_maxp[si], k)
             # roll bits depend on final sublane position in chunk: record
             # tsrow now, fix at pack time
             sub_words[si][tlane] |= np.uint32(tsrow << 22)  # staging: tsrow
         # pack this group's sublane lists into group-pure chunks; within a
         # chunk, assign each list to the sublane of its modal tsrow when
-        # free (dist becomes 0 for tsrow-pure lists -> per-step roll masks
-        # stay near-empty on banded matrices)
+        # free (dist becomes 0 for tsrow-pure lists -> the roll set stays
+        # small on banded matrices)
         nsub = len(sub_words)
         # order lists so each chunk sees ~one list per modal tsrow: bucket
         # by modal tsrow, emit round-robin
@@ -264,7 +261,6 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
                         taken_s[s] = True
                         slot_of[si] = s
                         break
-            chunk_smax = 0
             for s in range(SUB):
                 si = next((q for q in members if slot_of[q] == s), None)
                 if si is not None:
@@ -283,48 +279,16 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
                     word_l.append(wd)
                     vals_l.append(sub_vals[si])
                     wrow_l.append(sub_wrow[si])
-                    chunk_smax = max(chunk_smax,
-                                     int(sub_maxp[si] - 1).bit_length())
                 else:
                     word_l.append(np.zeros(LANES, np.uint32))
                     vals_l.append(np.zeros(LANES, dt))
                     wrow_l.append(0)
             chunk_of.append(g)
-            chunk_smax_l.append(chunk_smax)
 
     nchunks = len(chunk_of)
     if nchunks == 0:
         raise SellRBuildError("no chunks built")
 
-    # --- quarantine "dirty" chunks (any part with |dist| > 1): they flush
-    # individually (order-free RMW), so move them to the tail — clean steps
-    # then gate down to a {+1, -1} roll mask instead of all 14 ---
-    words_c = [np.stack(word_l[c * SUB:(c + 1) * SUB]) for c in range(nchunks)]
-    vals_c = [np.stack(vals_l[c * SUB:(c + 1) * SUB]) for c in range(nchunks)]
-    wrow_c = [wrow_l[c * SUB:(c + 1) * SUB] for c in range(nchunks)]
-    clean_codes = {0, 1 | (0 << 3), 7 | (1 << 3)}
-
-    def is_dirty(c):
-        wd = words_c[c]
-        em = ((wd >> 21) & 1) == 1
-        codes = set(np.unique(((wd >> 22) & 0xF)[em]).tolist())
-        return bool(codes - clean_codes)
-
-    dirty = [c for c in range(nchunks) if is_dirty(c)]
-    clean = [c for c in range(nchunks) if c not in set(dirty)]
-    order_c = clean + dirty
-    flush_c = np.zeros(nchunks, np.int32)
-    for j, c in enumerate(order_c):
-        if j < len(clean):
-            nxt = order_c[j + 1] if j + 1 < len(clean) else -1
-            flush_c[j] = 1 if (nxt < 0 or chunk_of[nxt] != chunk_of[c]) else 0
-        else:
-            flush_c[j] = 1
-    word_l = [words_c[c][s] for c in order_c for s in range(SUB)]
-    vals_l = [vals_c[c][s] for c in order_c for s in range(SUB)]
-    wrow_l = [wrow_c[c][s] for c in order_c for s in range(SUB)]
-    chunk_of = [chunk_of[c] for c in order_c]
-    chunk_smax_l = [chunk_smax_l[c] for c in order_c]
     if nchunks * SUB * LANES > max_slot_factor * max(nnz, 1) * 4 + 65536:
         raise SellRBuildError(
             f"{nchunks * SUB * LANES / nnz:.1f} slots/nnz after build")
@@ -337,39 +301,22 @@ def build_sellr(csr: HostCSR, dtype=jnp.float32,
     wrow = np.zeros(nch_pad * SUB, np.int32)
     wrow[: nchunks * SUB] = np.array(wrow_l, np.int32)
 
-    # roll set (static, from live eidx entries) + per-STEP activation mask
+    # roll set (static, from live eidx entries)
     em = (word >> 21) & 1
     rcode_all = np.where(em == 1, ((word >> 22) & 0xF), 0)
     pairs = sorted({(int(c & 7), int(c >> 3))
                     for c in np.unique(rcode_all).tolist()} - {(0, 0)})
     rolls = tuple(pairs)
-    code_to_bit = {r | (w << 3): j for j, (r, w) in enumerate(rolls)}
 
     # smeta: per step 1024 ints: [0,512) sublane wrows; [512,576) chunk meta
-    smeta = np.zeros(nsteps * SMEM_BLK, np.int32)
-    chunk_of_a = np.array(chunk_of + [-1] * (nch_pad - nchunks))
-    live = chunk_of_a >= 0
-    flush = np.zeros(nch_pad, np.int32)
-    flush[:nchunks] = flush_c
-    ybase = np.maximum(chunk_of_a, 0) * SUB
-    cmeta = np.where(live, (ybase << 1) | flush, 0).astype(np.int32)
-    chunk_smax_a = np.array(chunk_smax_l + [0] * (nch_pad - nchunks),
-                            np.int32)
+    smeta = np.zeros(nsteps * META_BLK, np.int32)
+    cmeta = np.zeros(nch_pad, np.int32)
+    cmeta[:nchunks] = np.asarray(chunk_of, np.int32) * SUB
     for i in range(nsteps):
-        smeta[i * SMEM_BLK: i * SMEM_BLK + NB * SUB] = \
+        smeta[i * META_BLK: i * META_BLK + NB * SUB] = \
             wrow[i * NB * SUB: (i + 1) * NB * SUB]
-        smeta[i * SMEM_BLK + NB * SUB: i * SMEM_BLK + NB * SUB + NB] = \
+        smeta[i * META_BLK + NB * SUB: i * META_BLK + NB * SUB + NB] = \
             cmeta[i * NB: (i + 1) * NB]
-        # per-step roll mask + scan depth
-        rc = rcode_all[i * NB * SUB * LANES // LANES:
-                       (i + 1) * NB * SUB]  # rows of this step
-        mask = 0
-        for c in np.unique(rc).tolist():
-            if c in code_to_bit:
-                mask |= 1 << code_to_bit[c]
-        smeta[i * SMEM_BLK + NB * SUB + NB] = mask
-        smeta[i * SMEM_BLK + NB * SUB + NB + 1] = int(
-            chunk_smax_a[i * NB:(i + 1) * NB].max(initial=0))
 
     return SellR(word=jnp.asarray(word.view(np.int32)),
                  vals=jnp.asarray(vals), smeta=jnp.asarray(smeta),
@@ -395,7 +342,7 @@ def sellr_xla_raw(word, vals, smeta, x2d, *, stages, rolls, x_rows,
     del x_rows                        # implied by x2d's shape
     nch = word.shape[0] // SUB
     nsteps = nch // NB
-    meta = smeta.reshape(nsteps, SMEM_BLK)
+    meta = smeta.reshape(nsteps, META_BLK)
     wrow = meta[:, : NB * SUB].reshape(-1)
     cmeta = meta[:, NB * SUB: NB * SUB + NB].reshape(-1)
     w = word
@@ -415,8 +362,7 @@ def sellr_xla_raw(word, vals, smeta, x2d, *, stages, rolls, x_rows,
         Q3 = jnp.where(mask, P, 0.0).reshape(nch, SUB, LANES)
         R = R + jnp.roll(Q3, r, axis=1).reshape(nch * SUB, LANES)
     # scatter chunk planes to y groups (dead chunks carry all-zero planes)
-    ybase = cmeta >> 1
-    seg = jnp.repeat(ybase // SUB, SUB) * SUB + jnp.tile(
+    seg = jnp.repeat(cmeta // SUB, SUB) * SUB + jnp.tile(
         jnp.arange(SUB), nch)
     return jax.ops.segment_sum(R, seg, num_segments=y_rows)
 
@@ -433,7 +379,7 @@ def execute_sellr_numpy(A: SellR, x: np.ndarray) -> np.ndarray:
     """float64 host reference of the compiled program semantics."""
     nch = int(A.word.shape[0]) // SUB
     nsteps = nch // NB
-    smeta = np.asarray(A.smeta).reshape(nsteps, SMEM_BLK)
+    smeta = np.asarray(A.smeta).reshape(nsteps, META_BLK)
     wrow = smeta[:, : NB * SUB].reshape(-1)
     cmeta = smeta[:, NB * SUB: NB * SUB + NB].reshape(-1)
     x2d = np.zeros(A.x_rows * LANES)
@@ -457,7 +403,7 @@ def execute_sellr_numpy(A: SellR, x: np.ndarray) -> np.ndarray:
         R = R + np.roll(Q, r, axis=1).reshape(nch * SUB, LANES)
     y2 = np.zeros((A.y_rows, LANES))
     for c in range(nch):
-        yb = int(cmeta[c]) >> 1
+        yb = int(cmeta[c])
         y2[yb: yb + SUB] += R[c * SUB: (c + 1) * SUB]
     return y2.reshape(-1)[: A.m]
 

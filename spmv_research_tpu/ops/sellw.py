@@ -75,7 +75,6 @@ from .dispatch import register_spmv, register_spmm
 from .clos import _register
 from .clos_route import LANES, SUB
 
-CHUNK_PAD = 64          # chunks are padded to a multiple of this at build
 _MAX_STAGES = 7         # parts ≤ 128 lanes
 
 
@@ -85,12 +84,12 @@ class SellWBuildError(ValueError):
 
 @partial(_register, data_fields=("word", "vals", "wrow", "yidx"),
          meta_fields=("shape", "nnz", "nnz_expanded", "nchunks", "x_rows",
-                      "K", "stages", "G", "classes"))
+                      "K", "stages", "G"))
 @dataclasses.dataclass(frozen=True)
 class SellW:
-    word: jnp.ndarray   # (8·nchunks_pad, 128) int32 packed per-slot word
-    vals: jnp.ndarray   # (8·nchunks_pad, 128) values (0 in padding)
-    wrow: jnp.ndarray   # (8·nchunks_pad,) int32 per-sublane x2d row
+    word: jnp.ndarray   # (8·max(nchunks, 1), 128) int32 packed per-slot word
+    vals: jnp.ndarray   # (8·max(nchunks, 1), 128) values (0 in padding)
+    wrow: jnp.ndarray   # (8·max(nchunks, 1),) int32 per-sublane x2d row
     yidx: jnp.ndarray   # (K, nblocks) int32 chunk id per y block (nchunks=0)
     shape: Tuple[int, int]
     nnz: int
@@ -100,13 +99,6 @@ class SellW:
     K: int              # max chunks per y block
     stages: int         # segmented-scan stages = ceil(log2(max part len))
     G: int = 2          # y blocks grouped per chunk (bid bits = log2 G)
-    # stage classes: chunks sorted by required scan depth at build; each
-    # class ((start_chunk, n_chunks, stages), ...) needs only the scan
-    # stages its longest part needs — most chunks of short-row matrices
-    # need 2-3 of the global 5-7 stages. Extra stages are no-ops (guard
-    # bits 0), so classes are purely an op-count optimization; start/n are
-    # multiples of CHUNK_PAD.
-    classes: Tuple[Tuple[int, int, int], ...] = ()
 
     format_name = "SELLW"
 
@@ -314,89 +306,27 @@ def build_sellw(csr: HostCSR, dtype=jnp.float32,
                        nblocks, dt, G, idx_u=idx_u)
 
 
-def _stage_classes(word_u, nchunks):
-    """Per-chunk required scan depth from the packed guard bits, and a
-    small set of contiguous classes (chunks sorted by depth).
-
-    Guard bit k is set on a slot at in-part position d iff d ≥ 2^k, so the
-    OR of a chunk's guard fields has highest bit ⌊log2(max d)⌋ and
-    ``bit_length(OR) == ceil(log2(max part len))`` — the exact per-chunk
-    stage count. Returns (perm, class list [(n_chunks, stages), ...]).
-    """
-    g = (word_u.view(np.uint32) >> 7) & 0x7F
-    g_or = np.bitwise_or.reduce(g.reshape(nchunks, SUB * LANES), axis=1)
-    stages_c = np.zeros(nchunks, np.int64)
-    nz = g_or > 0
-    stages_c[nz] = np.floor(np.log2(g_or[nz])).astype(np.int64) + 1
-    perm = np.argsort(stages_c, kind="stable")
-    counts = np.bincount(stages_c, minlength=_MAX_STAGES + 1)
-    classes = [(int(c), s) for s, c in enumerate(counts) if c > 0]
-    # merge small classes upward: a pallas_call + its CHUNK_PAD padding is
-    # only worth >= ~2 grid blocks of chunks
-    merged = []
-    for cnt, s in classes:
-        if merged and (merged[-1][0] < 2 * CHUNK_PAD
-                       or cnt < 2 * CHUNK_PAD):
-            pc, _ = merged.pop()
-            merged.append((pc + cnt, s))     # higher stages win (no-op pad)
-        else:
-            merged.append((cnt, s))
-    return perm, merged
-
-
 def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
                 m, n, nnz, nnz_expanded, x_rows, nblocks, dt,
                 G, idx_u=None):
-    """Sort chunks into stage classes, pad per class, build yidx, assemble
-    the pytree (shared tail of the native and Python packer tiers).
+    """Build yidx and assemble the pytree (shared tail of the native and
+    Python packer tiers).
 
     With ``idx_u`` (per-slot source-nnz plane, -1 empty) returns
     ``(SellW, idx_padded)`` — the DS build (ops/sellw_ds.py) uses it to
     place fp64-pair value planes on the identical routing program."""
     nchunks = len(chunk_pair)
-    if nchunks:
-        perm, klasses = _stage_classes(word_u, nchunks)
-        word_u = word_u.reshape(nchunks, SUB, LANES)[perm].reshape(-1, LANES)
-        vals_u = vals_u.reshape(nchunks, SUB, LANES)[perm].reshape(-1, LANES)
-        wrow_u = wrow_u.reshape(nchunks, SUB)[perm].reshape(-1)
-        if idx_u is not None:
-            idx_u = idx_u.reshape(nchunks, SUB, LANES)[perm].reshape(
-                -1, LANES)
-        chunk_pair = [chunk_pair[p] for p in perm]
-        chunk_bids = [chunk_bids[p] for p in perm]
-    else:
-        klasses = [(0, 0)]
-
-    # lay classes out contiguously, each padded to a CHUNK_PAD multiple
-    classes = []
-    padded_pos = np.zeros(max(nchunks, 1), np.int64)
-    npad = 0
-    src = 0
-    seg_src, seg_dst, seg_len = [], [], []
-    for cnt, s in klasses:
-        n_pad = ((cnt + CHUNK_PAD - 1) // CHUNK_PAD) * CHUNK_PAD
-        if cnt:
-            padded_pos[src: src + cnt] = npad + np.arange(cnt)
-            seg_src.append(src)
-            seg_dst.append(npad)
-            seg_len.append(cnt)
-        classes.append((npad, n_pad, s))
-        npad += n_pad
-        src += cnt
-    npad = max(npad, CHUNK_PAD)
-
+    npad = max(nchunks, 1)      # an empty program keeps one inert chunk
     word = np.zeros((npad * SUB, LANES), np.uint32)
     vals = np.zeros((npad * SUB, LANES), dt)
     wrow = np.zeros(npad * SUB, np.int32)
-    idxp = (np.full((npad * SUB, LANES), -1, np.int32)
-            if idx_u is not None else None)
-    for s0, d0, ln in zip(seg_src, seg_dst, seg_len):
-        word[d0 * SUB: (d0 + ln) * SUB] = word_u[s0 * SUB: (s0 + ln) * SUB]
-        vals[d0 * SUB: (d0 + ln) * SUB] = vals_u[s0 * SUB: (s0 + ln) * SUB]
-        wrow[d0 * SUB: (d0 + ln) * SUB] = wrow_u[s0 * SUB: (s0 + ln) * SUB]
-        if idxp is not None:
-            idxp[d0 * SUB: (d0 + ln) * SUB] = idx_u[s0 * SUB:
-                                                    (s0 + ln) * SUB]
+    word[: nchunks * SUB] = word_u
+    vals[: nchunks * SUB] = vals_u
+    wrow[: nchunks * SUB] = wrow_u
+    idxp = None
+    if idx_u is not None:
+        idxp = np.full((npad * SUB, LANES), -1, np.int32)
+        idxp[: nchunks * SUB] = idx_u
 
     # output rows: group-member g's partials live at [g·npad, (g+1)·npad),
     # the all-zero row at G·npad
@@ -406,7 +336,7 @@ def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
         for bid in range(G):
             b = G * pb + bid
             if bids[bid] and b < nblocks:
-                entries.append((b, int(padded_pos[c]) + bid * npad))
+                entries.append((b, c + bid * npad))
                 slot[b] += 1
     K = max(int(slot.max()) if nblocks else 1, 1)
     if K > 64:
@@ -423,8 +353,7 @@ def _emit_sellw(word_u, vals_u, wrow_u, chunk_pair, chunk_bids, max_part,
               nnz_expanded=nnz_expanded, nchunks=nchunks,
               x_rows=x_rows, K=K,
               stages=int(max_part - 1).bit_length(),
-              G=G,
-              classes=tuple(classes))
+              G=G)
     if idxp is not None:
         return A, idxp
     return A

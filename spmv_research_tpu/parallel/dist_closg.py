@@ -74,14 +74,13 @@ def build_sharded_closg(csr: HostCSR, devices: Sequence = None,
                         nnz=csr.nnz, nnz_expanded=csr.nnz_expanded)
 
 
-def distributed_spmv_closg(A: ShardedClosG, x: jnp.ndarray,
-                           impl: str = "xla") -> jnp.ndarray:
+def distributed_spmv_closg(A: ShardedClosG, x: jnp.ndarray) -> jnp.ndarray:
     """Broadcast x (allgather halo strategy), run the k per-device routed
     SpMVs concurrently (async dispatch), concatenate row blocks."""
     ys = []
     for j in range(A.k):
         xj = jax.device_put(x, A.devices[j])
-        ys.append(spmv_dispatch(A.shards[j], xj, impl=impl))
+        ys.append(spmv_dispatch(A.shards[j], xj))
     ys = [jax.device_put(y, A.devices[0]) for y in ys]
     return jnp.concatenate(ys)
 

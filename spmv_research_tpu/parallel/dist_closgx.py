@@ -5,8 +5,8 @@ Round-2 left scattered matrices on the MPMD ``device_put`` loop
 single SPMD program could run them. CLOSGX (``ops/clos_xl.py``) already
 forces every *chunk* to one canonical shape; this module extends the same
 trick across *shards*: each device's chunk stack is padded to the shard
-maximum (dead chunks are inert — zero guards/values, empty-bit extraction
-groups, unreferenced by ``ymap``), every static (stages, W, mrp, C) is the
+maximum (dead chunks are inert — zero guards/values, ``yslot`` -1 on every
+row, unreferenced by ``ymap``), every static (stages, mrp, C) is the
 max over shards, and one ``shard_map`` program executes everywhere.
 
 Strategy: rows are nnz-balanced across devices (128-aligned boundaries,
@@ -40,8 +40,7 @@ from ..ops.clos_xl import ClosGX, build_clos_gather_xl, spmv_closgx_xla
 from ..ops.clos_route import LANES
 from .dist import partition_rows_nnz_balanced
 
-_LEAF_FIELDS = ("rowidx", "vals", "r1", "r2", "r3", "ysel_w", "wstart",
-                "border", "clsmeta", "ymap")
+_LEAF_FIELDS = ("rowidx", "vals", "r1", "r2", "r3", "yslot", "ymap")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +94,7 @@ def _pad_family(shards, chunk_N, Rp_floor=0):
     returns (leaves, statics, Rp)."""
     C = max(s.n_chunks for s in shards)
     stages = max(s.stages for s in shards)
-    W = max(s.W for s in shards)
     mrp = max(s.mrp for s in shards)
-    nb = max(s.border.shape[1] for s in shards)
     Rp = max(max(s.ymap.shape[0] for s in shards), Rp_floor)
     S = shards[0].rowidx.shape[1]
     V = shards[0].V
@@ -113,12 +110,10 @@ def _pad_family(shards, chunk_N, Rp_floor=0):
             shape = list(a.shape)
             tgt = {"rowidx": (C, S), "vals": (C, S, LANES),
                    "r1": (C, S, LANES), "r2": (C,) + a.shape[1:],
-                   "r3": (C, S, LANES), "ysel_w": (C, mrp, LANES),
-                   "wstart": (C, mrp), "border": (C, nb),
-                   "clsmeta": (C,) + a.shape[1:]}[name]
+                   "r3": (C, S, LANES), "yslot": (C, mrp, LANES)}[name]
             out = np.zeros(tgt, a.dtype)
-            if name == "ysel_w":
-                out |= (1 << 16)      # empty-bit for padded groups
+            if name == "yslot":
+                out[:] = -1           # padded rows read no slot
             sl = tuple(slice(0, d) for d in shape)
             out[sl] = a
             outs.append(out)
@@ -128,7 +123,7 @@ def _pad_family(shards, chunk_N, Rp_floor=0):
     n = shards[0].n
     statics = dict(shape=(Rp * LANES, n), nnz=0, nnz_expanded=0,
                    N=chunk_N, V=V, x_rows=(n + LANES - 1) // LANES,
-                   stages=stages, W=W, mrp=mrp)
+                   stages=stages, mrp=mrp)
     return leaves, statics, Rp
 
 

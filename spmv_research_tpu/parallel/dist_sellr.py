@@ -2,8 +2,8 @@
 
 Replaces the round-1 MPMD device_put loop (``dist_closg.py``) for the
 flagship locality engine: every shard's compiled SELLR program is padded to
-one canonical shape (dead chunks are inert by construction — zero emask,
-flush 0), so a single ``shard_map`` program executes on every device and
+one canonical shape (dead chunks are inert by construction — zero emask
+and values), so a single ``shard_map`` program executes on every device and
 the whole step jits multi-host (SURVEY.md §2.8/§5.8; the reference has no
 distributed backend — ``slurm*.sh`` launches independent jobs — so this
 layer is new design surface).
@@ -34,7 +34,7 @@ from jax import shard_map
 from functools import partial
 
 from ..core.host import HostCSR
-from ..ops.sellr import (GROUP, NB, SMEM_BLK, SellR, SellRBuildError,
+from ..ops.sellr import (GROUP, NB, META_BLK, SellR, SellRBuildError,
                          build_sellr, sellr_xla_raw)
 from ..ops.clos_route import LANES, SUB
 from .dist import partition_rows_nnz_balanced
@@ -60,10 +60,10 @@ def _cols_slice(csr: HostCSR, c0: int, c1: int) -> HostCSR:
 
 
 def _empty_program(x_rows: int, y_rows: int, dtype) -> SellR:
-    """One dead chunk: inert under the kernel (emask 0, flush 0)."""
+    """One dead chunk: inert (emask 0, all-zero values)."""
     word = np.zeros((NB * SUB, LANES), np.int32)
     vals = np.zeros((NB * SUB, LANES), np.dtype(dtype))
-    smeta = np.zeros(SMEM_BLK, np.int32)
+    smeta = np.zeros(META_BLK, np.int32)
     return SellR(word=jnp.asarray(word), vals=jnp.asarray(vals),
                  smeta=jnp.asarray(smeta), shape=(y_rows * LANES,
                                                   x_rows * LANES),
@@ -73,24 +73,14 @@ def _empty_program(x_rows: int, y_rows: int, dtype) -> SellR:
 
 def _pad_program(F: SellR, nsteps_t: int, rolls_t: Tuple[Tuple[int, int],
                                                          ...]) -> SellR:
-    """Pad to nsteps_t steps and remap per-step roll masks onto the union
-    roll set (bit j of a step mask refers to rolls[j])."""
+    """Pad to nsteps_t steps over the union roll set."""
     nsteps = F.word.shape[0] // SUB // NB
     word = np.zeros((nsteps_t * NB * SUB, LANES), np.int32)
     vals = np.zeros((nsteps_t * NB * SUB, LANES), np.asarray(F.vals).dtype)
-    smeta = np.zeros(nsteps_t * SMEM_BLK, np.int32)
+    smeta = np.zeros(nsteps_t * META_BLK, np.int32)
     word[: F.word.shape[0]] = np.asarray(F.word)
     vals[: F.vals.shape[0]] = np.asarray(F.vals)
-    sm = np.asarray(F.smeta).reshape(nsteps, SMEM_BLK).copy()
-    bit_of = {rw: j for j, rw in enumerate(rolls_t)}
-    for i in range(nsteps):
-        old = int(sm[i, NB * SUB + NB])
-        new = 0
-        for j, rw in enumerate(F.rolls):
-            if (old >> j) & 1:
-                new |= 1 << bit_of[rw]
-        sm[i, NB * SUB + NB] = new
-    smeta[: nsteps * SMEM_BLK] = sm.reshape(-1)
+    smeta[: nsteps * META_BLK] = np.asarray(F.smeta)
     return dataclasses.replace(
         F, word=jnp.asarray(word), vals=jnp.asarray(vals),
         smeta=jnp.asarray(smeta), rolls=rolls_t)

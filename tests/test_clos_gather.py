@@ -23,16 +23,41 @@ def test_closg_numpy_vs_scipy(rng, m, n, density):
     assert np.max(np.abs(y - want) / scale) < 1e-6
 
 
-@pytest.mark.parametrize("impl", ["xla"])
-def test_closg_device_impls(rng, impl):
+def _few_long_rows(rng, m=4000, n=4000):
+    """Short rows (3 nnz) plus five ~600-nnz rows: a deep segmented scan
+    (10 stages) over mostly trivial rows."""
+    import scipy.sparse as sp
+    from spmv_research_tpu.core.host import HostCSR
+
+    rows, cols = [], []
+    for i in range(m):
+        k = 600 if i in (17, 901, 902, 2500, 3999) else 3
+        rows.append(np.full(k, i))
+        cols.append(rng.choice(n, k, replace=False))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = rng.uniform(-1, 1, rows.shape[0])
+    mat = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    mat.sum_duplicates(); mat.sort_indices()
+    return HostCSR.from_scipy(mat)
+
+
+@pytest.mark.parametrize("case", ["square", "wide", "few_long_rows"])
+def test_closg_device_impls(rng, case):
+    """The XLA lowering and the fp64 program replay against scipy."""
     import jax.numpy as jnp
 
-    host = random_host_csr(400, 400, 0.015, rng)
-    A = build_clos_gather(host, )
-    x = rng.uniform(-1, 1, 400).astype(np.float32)
-    y = np.asarray(spmv(A, jnp.asarray(x), impl=impl))
-    want = host.to_scipy() @ x.astype(np.float64)
-    assert np.allclose(y, want, atol=1e-4)
+    host = {"square": lambda: random_host_csr(400, 400, 0.015, rng),
+            "wide": lambda: random_host_csr(500, 700, 0.01, rng),
+            "few_long_rows": lambda: _few_long_rows(rng)}[case]()
+    A = build_clos_gather(host)
+    x = rng.uniform(-1, 1, host.n).astype(np.float32)
+    y = np.asarray(spmv(A, jnp.asarray(x)))
+    S = host.to_scipy()
+    want = S @ x.astype(np.float64)
+    scale = np.abs(S) @ np.abs(x).astype(np.float64) + 1e-30
+    assert np.max(np.abs(y - want) / scale) < 1e-5
+    y64 = execute_closg_numpy(A, x.astype(np.float64))
+    assert np.max(np.abs(y64 - want) / scale) < 1e-6   # fp32 value plane
 
 
 def test_closg_pathological(rng):
@@ -99,56 +124,9 @@ def test_closg_chunked(rng):
 
 
 @pytest.mark.parametrize("impl", ["xla"])
-def test_closg_fused_windows(rng, impl):
-    """Opt-in fused-window build (rot rides r1 spare bits [7,10) of the
-    spare field): the extra bits must not disturb the lane pick."""
-    import jax.numpy as jnp
-
-    host = random_host_csr(500, 700, 0.01, rng)
-    A = build_clos_gather(host, fuse_windows=True)
-    assert A.fused_win
-    x = rng.uniform(-1, 1, 700).astype(np.float32)
-    y = np.asarray(spmv(A, jnp.asarray(x), impl=impl))
-    want = host.to_scipy() @ x.astype(np.float64)
-    assert np.allclose(y, want, atol=1e-4)
-
-
-def test_closg_scan_cap_extra_picks(rng):
-    """A few very long rows among short ones trigger the capped-scan build
-    (window sums of width 2^K + extra summed picks); the XLA and numpy
-    paths keep the full scan and must still agree with scipy."""
-    import jax.numpy as jnp
-    import scipy.sparse as sp
-    from spmv_research_tpu.core.host import HostCSR
-
-    m = n = 4000
-    # short rows (3 nnz) + 5 long rows (~600 nnz) => stages>4, cap kicks in
-    rows, cols = [], []
-    for i in range(m):
-        k = 600 if i in (17, 901, 902, 2500, 3999) else 3
-        rows.append(np.full(k, i))
-        cols.append(rng.choice(n, k, replace=False))
-    rows, cols = np.concatenate(rows), np.concatenate(cols)
-    vals = rng.uniform(-1, 1, rows.shape[0])
-    mat = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
-    mat.sum_duplicates(); mat.sort_indices()
-    host = HostCSR.from_scipy(mat)
-    A = build_clos_gather(host)
-    assert A.scan_cap and len(A.scan_cap) < len(A.scan_stages)
-    assert any(cls[3] for cls in A.yext_classes)   # accum classes present
-    x = rng.uniform(-1, 1, n).astype(np.float32)
-    y = np.asarray(spmv(A, jnp.asarray(x), impl="xla"))
-    want = mat @ x.astype(np.float64)
-    scale = np.abs(mat) @ np.abs(x).astype(np.float64) + 1e-30
-    assert np.max(np.abs(y - want) / scale) < 1e-5
-    y3 = execute_closg_numpy(A, x.astype(np.float64))
-    assert np.max(np.abs(y3 - want) / scale) < 1e-6   # fp32 value plane
-
-
-@pytest.mark.parametrize("impl", ["xla"])
 def test_closg_high_degree(rng, impl):
-    """Dense rows (~70 nnz/row, the raefsky3-twin regime): extraction spans
-    many window octaves (W > 8, 9-bit cid) and many candidates (C > 32)."""
+    """Dense rows (~70 nnz/row, the raefsky3-twin regime): each 128-row y
+    group draws its row ends from many scan rows (C > 32 candidates)."""
     import jax.numpy as jnp
     import scipy.sparse as sp
     from spmv_research_tpu.core.host import HostCSR
@@ -161,7 +139,7 @@ def test_closg_high_degree(rng, impl):
     mat.sum_duplicates(); mat.sort_indices()
     host = HostCSR.from_scipy(mat)
     A = build_clos_gather(host)
-    assert A.W > 8
+    assert A.C > 32
     x = rng.uniform(-1, 1, n).astype(np.float32)
     y = np.asarray(spmv(A, jnp.asarray(x), impl=impl))
     want = mat @ x.astype(np.float64)
@@ -187,3 +165,17 @@ def test_closg_spmm_scan(rng, impl):
     scale = np.abs(host.to_scipy()) @ np.abs(X).astype(np.float64) + 1e-30
     assert Y.shape == (host.m, K)
     assert np.max(np.abs(Y - want) / scale) < 1e-5
+
+
+@pytest.mark.parametrize("value_lut", [False, True])
+def test_closg_footprint_counts_every_leaf(rng, value_lut):
+    """Every device leaf of a CLOSG program is read by its XLA lowering, so
+    the footprint (the bytes the roofline streams) is all of them."""
+    import jax
+
+    host = random_host_csr(300, 300, 0.02, rng)
+    host.a[:] = np.round(host.a * 2) / 2        # few distinct values
+    A = build_clos_gather(host, value_lut=value_lut)
+    assert A.use_vlut == value_lut
+    leaves = jax.tree_util.tree_leaves(A)
+    assert A.mem_footprint_bytes() == sum(l.nbytes for l in leaves)

@@ -64,3 +64,20 @@ def test_closgx_spmm(rng):
     want = S @ X.astype(np.float64)
     scale = np.abs(S) @ np.abs(X).astype(np.float64) + 1e-30
     assert np.max(np.abs(Y - want) / scale) < 1e-5
+
+
+def test_closgx_footprint_and_yslot(rng):
+    """yslot names each row's last CSR slot in its chunk (-1 for empty
+    rows and padding); the footprint counts every device leaf."""
+    import jax
+
+    host = random_host_csr(3000, 600, 0.004, rng)
+    A = build_clos_gather_xl(host, chunk_N=8192)
+    leaves = jax.tree_util.tree_leaves(A)
+    assert A.mem_footprint_bytes() == sum(l.nbytes for l in leaves)
+    ys = np.asarray(A.yslot).reshape(A.n_chunks, -1)
+    lens = np.diff(host.ia.astype(np.int64))
+    live = ys[ys >= 0]
+    assert live.size == int((lens > 0).sum())
+    assert live.max() < A.N
+    _check(host, A, rng, "xla")

@@ -171,6 +171,8 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                  "0.906 14 ldoor_small",
         locality_line="20650 20650 6.1665 4.4359 normal random 0.0019 "
                       "6.135 0.1767 0.3305 14 mac_econ_small",
+        tile_line="6245 6245 64.17 14.06 normal random 0.0086 0.2156 "
+                  "1.6158 0.9147 14 cant_small",
         cfg=cfg)
 
 

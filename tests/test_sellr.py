@@ -105,9 +105,11 @@ def test_footprint_and_meta():
     assert F.mem_footprint_bytes() > 8 * F.nnz  # word+vals at least
     assert F.nnz == host.nnz
     assert F.shape == (3000, 3000)
-    # dirty chunks (if any) must each self-flush; clean runs flush on
-    # group boundaries — every group's contributions reach y exactly once,
-    # which the differential checks above already prove end-to-end.
+    # every live chunk names the first y2d row of its 1024-row group
+    nsteps = F.word.shape[0] // 8 // 64
+    cmeta = np.asarray(F.smeta).reshape(nsteps, 1024)[:, 512:576].reshape(-1)
+    assert np.all(cmeta[: F.nchunks] % 8 == 0)
+    assert np.all(cmeta[: F.nchunks] < F.y_rows)
 
 
 @pytest.mark.parametrize("band,nnzpr_hi,seed", [(300, 9, 11), (40, 6, 12)])

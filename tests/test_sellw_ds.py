@@ -1,4 +1,4 @@
-"""SELLWDS (fp64-at-speed double-single SELLW) + part_cap/stage classes."""
+"""SELLWDS (fp64-at-speed double-single SELLW) + part_cap and chunk layout."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -41,19 +41,20 @@ def test_part_cap_preserves_results(cap):
     assert np.abs(yp - gold).max() / np.abs(gold).max() < 1e-5
     # stage depth really is bounded by the cap
     assert A.stages <= max(int(cap - 1).bit_length(), 0)
-    for _, _, s in A.classes:
-        assert s <= A.stages
 
 
-def test_stage_classes_partition_chunks():
+def test_sellw_chunk_layout():
+    """Chunks are stored unpadded; yidx names a chunk's output row
+    (g·nchunks + chunk) or the all-zero row G·nchunks, and every y block
+    that holds nonzeros is fed by at least one chunk."""
     host = _banded(2000, 60, seed=3, lognormal=False)
     A = build_sellw(host, dtype=jnp.float32, part_cap=128)
-    total = sum(c[1] for c in A.classes)
-    assert total == A.wrow.shape[0] // 8
-    starts = [c[0] for c in A.classes]
-    assert starts == sorted(starts)
-    stages = [c[2] for c in A.classes if c[1] > 0]
-    assert stages == sorted(stages)
+    assert A.wrow.shape[0] == 8 * A.nchunks
+    yidx = np.asarray(A.yidx)
+    assert yidx.min() >= 0 and yidx.max() <= A.G * A.nchunks
+    lens = np.diff(host.ia.astype(np.int64))
+    nonempty = np.add.reduceat(lens, np.arange(0, host.m, 128)) > 0
+    assert np.all((yidx[:, nonempty] < A.G * A.nchunks).any(axis=0))
 
 
 @pytest.mark.parametrize("impl", ["xla"])
